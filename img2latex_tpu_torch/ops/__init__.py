@@ -1,0 +1,1 @@
+"""Tensor operations and the hand-written CUDA kernels with their plain versions."""
