@@ -9,7 +9,10 @@ module imports no JAX.  The mapping:
 * LSTM ``W_ih_l{i}`` / ``W_hh_l{i}`` (in, 4H) -> ``weight_ih_l{i}`` /
   ``weight_hh_l{i}`` (4H, in), biases as they are;
 * the vector head's rows from the JAX flatten order (h, w, c) of NHWC to
-  this port's (c, h, w) of NCHW.
+  this port's (c, h, w) of NCHW; the grid head's rows are (h·C + c) in
+  both, so it is only transposed;
+* the attention's ``attn`` kernel (H+E, A), h rows first, and ``v`` (A, 1)
+  transposed into ``attn.weight`` (A, H+E) and ``v.weight`` (1, A).
 
 Every leaf must be used and every parameter of the module set; either
 failure raises.
@@ -57,10 +60,11 @@ def params_from_flax(tree: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
         sd[f"encoder.convs.{i}.weight"] = take(f"encoder/Conv_{i}/kernel").transpose(3, 2, 0, 1)
         sd[f"encoder.convs.{i}.bias"] = take(f"encoder/Conv_{i}/bias")
     C, Hf, Wf = enc.feature_shape
-    kern = take("encoder/Dense_0/kernel")  # (Hf*Wf*C, E), rows in (h, w, c) order
-    if kern.shape[0] != C * Hf * Wf:
-        raise ValueError(f"head kernel has {kern.shape[0]} rows, the encoder flattens {C * Hf * Wf}")
-    kern = kern.reshape(Hf, Wf, C, -1).transpose(2, 0, 1, 3).reshape(C * Hf * Wf, -1)
+    kern = take("encoder/Dense_0/kernel")
+    if enc.output == "vector":  # (Hf*Wf*C, E), rows in (h, w, c) order
+        if kern.shape[0] != C * Hf * Wf:
+            raise ValueError(f"head kernel has {kern.shape[0]} rows, the encoder flattens {C * Hf * Wf}")
+        kern = kern.reshape(Hf, Wf, C, -1).transpose(2, 0, 1, 3).reshape(C * Hf * Wf, -1)
     sd["encoder.head.weight"] = kern.T
     sd["encoder.head.bias"] = take("encoder/Dense_0/bias")
 
@@ -71,6 +75,10 @@ def params_from_flax(tree: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
         sd[f"decoder.cell.lstm.weight_hh_l{i}"] = take(f"{cell}/lstm/W_hh_l{i}").T
         sd[f"decoder.cell.lstm.bias_ih_l{i}"] = take(f"{cell}/lstm/b_ih_l{i}")
         sd[f"decoder.cell.lstm.bias_hh_l{i}"] = take(f"{cell}/lstm/b_hh_l{i}")
+    if model.decoder.cell.use_attention:
+        sd["decoder.cell.attention.attn.weight"] = take(f"{cell}/attention/attn/kernel").T
+        sd["decoder.cell.attention.attn.bias"] = take(f"{cell}/attention/attn/bias")
+        sd["decoder.cell.attention.v.weight"] = take(f"{cell}/attention/v/kernel").T
     sd["decoder.cell.out.weight"] = take(f"{cell}/out/kernel").T
     sd["decoder.cell.out.bias"] = take(f"{cell}/out/bias")
 

@@ -42,6 +42,7 @@ class EncoderConfig:
 class DecoderConfig:
     hidden_dim: int = 512
     lstm_layers: int = 2
+    attention: bool = True  # additive attention over grid memory (S > 1)
 
 
 @dataclass
@@ -50,7 +51,7 @@ class ModelConfig:
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     embedding_dim: int = 512
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
-    memory: str = "vector"  # "vector" | "grid" (only vector is ported)
+    memory: str = "vector"  # "vector" (one embedding) | "grid" (one slot per feature column)
 
 
 @dataclass

@@ -19,4 +19,10 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);  // round to nearest even, as torch's .to(bfloat16)
 }
 
+// x rounded to the storage type T and back: the rounding points of the TPU
+// kernels, where they cast an intermediate to the compute type.
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
 }  // namespace i2l

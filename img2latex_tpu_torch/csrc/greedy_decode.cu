@@ -1,8 +1,11 @@
 // Whole greedy decode of the LSTM decoder (vector memory), one step at a time.
 //
 // Replaces the TPU kernel img2latex_tpu/ops/pallas/decode_step.py::pallas_full_greedy_decode
-// (pl.pallas_call at line 523, early_exit=False, no scores); one step of it is
-// decode_step.py::fused_decode_step (pl.pallas_call at line 176).
+// (pl.pallas_call at line 523; early_exit is the host loop's, the per-row
+// scores are vocab_argmax_step's); one step of it is
+// decode_step.py::fused_decode_step (pl.pallas_call at line 176).  The grid
+// kernel grid_decode.py::pallas_full_grid_greedy_decode runs the same two
+// kernels with its context from grid_attend.cu.
 //
 // The TPU kernel holds all decoder weights in VMEM for the 141 steps (about
 // 11.5 MB in bf16 at E = H = 512, L = 2).  An H100 SM has 227 KB of shared
@@ -14,8 +17,10 @@
 //                     fused with the gate math in float32; c and the new h
 //                     are stored in the compute type, as on the TPU.
 //   vocab_argmax_step logits = h @ W_out + b_out fused with the row argmax
-//                     (lowest index wins ties), the PAD-after-END rule and
-//                     the token store; logits never reach device memory.
+//                     (lowest index wins ties), the PAD-after-END rule, the
+//                     token store and, when asked, the step's confidence
+//                     signal (decode_step.py:327-372) added to a per-row
+//                     score; logits never reach device memory.
 //
 // Bound: per row and step the products are 2 (2E + H) 4H + 2 H 4H + 2 H Vp
 // FLOP = 11 MFLOP at E = H = Vp = 512, while the weights (11.5 MB in bf16)
@@ -32,7 +37,11 @@
 //     four gates of its 4 rows x 2 units and can apply the cell update.
 //   vocab_argmax_step: a block takes 16 rows and walks all Vp columns in
 //     chunks of 128, each thread keeping a running (max, index) of its row;
-//     the 16 threads of a row then reduce with warp shuffles.
+//     the 16 threads of a row then reduce with warp shuffles.  For a score
+//     a thread also keeps the runner-up (the largest logit outside the
+//     chosen column, a tie giving margin 0, as masking the argmax column
+//     does) and an online sum of exp(l - max) and of exp(l - max) (l - max)
+//     for the logsumexp and the entropy.
 #include "common.cuh"
 
 namespace {
@@ -151,10 +160,83 @@ constexpr int V_BN = 128;  // columns per chunk
 constexpr int V_BK = 16;
 constexpr int V_TN = 8;    // columns per thread per chunk
 
-template <typename T>
+// Running state of one row's logits, for the argmax and the score signals.
+// z = sum exp(l - best), q = sum exp(l - best) (l - best), over the columns seen.
+struct RowStat {
+  float best, second, z, q;
+  int idx;
+};
+
+__device__ __forceinline__ void stat_push(RowStat& st, float v, int col) {
+  if (v > st.best) {  // columns come in increasing order: a strict > keeps the lowest index
+    if (st.z > 0.f) {
+      const float d = st.best - v, a = expf(d);
+      st.q = a * (st.q + d * st.z);
+      st.z = a * st.z;
+    }
+    st.z += 1.f;
+    st.second = st.best;
+    st.best = v;
+    st.idx = col;
+  } else {
+    st.second = fmaxf(st.second, v);
+    const float d = v - st.best, e = expf(d);
+    st.z += e;
+    st.q += e * d;
+  }
+}
+
+// Merge the state of the lane `off` away (same half warp).  Without kScore
+// only (best, idx) are kept.
+template <bool kScore>
+__device__ __forceinline__ void stat_merge(RowStat& st, int off) {
+  const float o_best = __shfl_xor_sync(0xffffffffu, st.best, off);
+  const int o_idx = __shfl_xor_sync(0xffffffffu, st.idx, off);
+  const bool other_wins = o_best > st.best || (o_best == st.best && o_idx < st.idx);
+  if (kScore) {
+    const float o_second = __shfl_xor_sync(0xffffffffu, st.second, off);
+    const float o_z = __shfl_xor_sync(0xffffffffu, st.z, off);
+    const float o_q = __shfl_xor_sync(0xffffffffu, st.q, off);
+    const float m = other_wins ? o_best : st.best;
+    float z = 0.f, q = 0.f;
+    if (st.z > 0.f) {
+      const float d = st.best - m, a = expf(d);
+      z += a * st.z;
+      q += a * (st.q + d * st.z);
+    }
+    if (o_z > 0.f) {
+      const float d = o_best - m, a = expf(d);
+      z += a * o_z;
+      q += a * (o_q + d * o_z);
+    }
+    st.z = z;
+    st.q = q;
+    st.second = fmaxf(fmaxf(st.second, o_second), other_wins ? st.best : o_best);
+  }
+  if (other_wins) {
+    st.best = o_best;
+    st.idx = o_idx;
+  }
+}
+
+// Signal codes: 1 logp, 2 margin, 3 entropy, 4 margin + alpha logp.
+__device__ __forceinline__ float stat_signal(const RowStat& st, int signal, float alpha) {
+  const float lse = st.best + logf(st.z);
+  const float logp = st.best - lse;  // the chosen token is the argmax
+  const float margin = st.best - st.second;
+  switch (signal) {
+    case 1: return logp;
+    case 2: return margin;
+    case 3: return st.q / st.z - logf(st.z);
+    default: return margin + alpha * logp;
+  }
+}
+
+template <typename T, bool kScore>
 __global__ void __launch_bounds__(kThreads) vocab_argmax_step_kernel(
     const T* __restrict__ h, const T* __restrict__ w_out, const float* __restrict__ b_out,
-    int* __restrict__ tokens, int* __restrict__ finished, int* __restrict__ out, int t, int T_len,
+    int* __restrict__ tokens, int* __restrict__ finished, int* __restrict__ out,
+    float* __restrict__ score, int signal, float alpha, int t, int T_len,
     int B, int H, int Vp, int end_id, int pad_id) {
   __shared__ float As[V_BK][V_BM + 1];
   __shared__ __align__(16) float Bs[V_BK][V_BN];
@@ -163,8 +245,8 @@ __global__ void __launch_bounds__(kThreads) vocab_argmax_step_kernel(
   const int row0 = blockIdx.x * V_BM;
   const int row = row0 + ty;
 
-  float best = -3.402823466e+38f;  // -FLT_MAX; padded columns carry -1e30
-  int best_idx = 0;
+  // -FLT_MAX: padded columns carry -1e30 and must still lose to real ones
+  RowStat st{-3.402823466e+38f, -3.402823466e+38f, 0.f, 0.f, 0};
   for (int n0 = 0; n0 < Vp; n0 += V_BN) {
     float acc[V_TN];
 #pragma unroll
@@ -198,36 +280,32 @@ __global__ void __launch_bounds__(kThreads) vocab_argmax_step_kernel(
       }
       __syncthreads();
     }
-    // Columns are visited in increasing order, so a strict > keeps the lowest index.
 #pragma unroll
     for (int n = 0; n < V_TN; ++n) {
       const int col = n0 + tx * V_TN + n;
       if (col < Vp) {
         const float v = acc[n] + b_out[col];
-        if (v > best) {
-          best = v;
-          best_idx = col;
+        if (kScore) {
+          stat_push(st, v, col);
+        } else if (v > st.best) {
+          st.best = v;
+          st.idx = col;
         }
       }
     }
   }
   // The 16 threads of a row are one half of a warp: reduce (max, lowest index).
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, best, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, best_idx, off);
-    if (ov > best || (ov == best && oi < best_idx)) {
-      best = ov;
-      best_idx = oi;
-    }
-  }
+  for (int off = 8; off > 0; off >>= 1) stat_merge<kScore>(st, off);
   if (tx == 0 && row < B) {
-    int tok = best_idx;
+    int tok = st.idx;
+    int f = 0;
     if (finished != nullptr) {
-      int f = finished[row];
+      f = finished[row];
       tok = f ? pad_id : tok;
       finished[row] = (f || tok == end_id) ? 1 : 0;
     }
+    if (kScore && !f) score[row] += stat_signal(st, signal, alpha);
     tokens[row] = tok;
     if (out != nullptr) out[(size_t)row * T_len + t] = tok;
   }
@@ -247,13 +325,16 @@ cudaError_t launch_lstm(const void* tokens, const void* emb, int E0, const void*
 
 template <typename T>
 cudaError_t launch_vocab(const void* h, const void* w_out, const void* b_out, void* tokens,
-                         void* finished, void* out, int t, int T_len, int B, int H, int Vp,
-                         int end_id, int pad_id, cudaStream_t stream) {
+                         void* finished, void* out, void* score, int signal, float alpha, int t,
+                         int T_len, int B, int H, int Vp, int end_id, int pad_id,
+                         cudaStream_t stream) {
   dim3 grid((B + V_BM - 1) / V_BM);
-  vocab_argmax_step_kernel<T><<<grid, kThreads, 0, stream>>>(
+  auto kernel = score != nullptr ? vocab_argmax_step_kernel<T, true>
+                                 : vocab_argmax_step_kernel<T, false>;
+  kernel<<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(w_out), static_cast<const float*>(b_out),
-      static_cast<int*>(tokens), static_cast<int*>(finished), static_cast<int*>(out), t, T_len, B,
-      H, Vp, end_id, pad_id);
+      static_cast<int*>(tokens), static_cast<int*>(finished), static_cast<int*>(out),
+      static_cast<float*>(score), signal, alpha, t, T_len, B, H, Vp, end_id, pad_id);
   return cudaGetLastError();
 }
 
@@ -281,19 +362,22 @@ extern "C" int i2l_lstm_layer_step(const void* tokens, const void* emb, int E0, 
 
 // Vocab product, argmax and token store for one step.  h (B, H); w_out (H, Vp);
 // b_out (Vp,) float32; tokens (B,) int32 receives the token; finished (B,)
-// int32 or null (no END rule); out (B, T_len) int32 or null, column t.
+// int32 or null (no END rule); out (B, T_len) int32 or null, column t;
+// score (B,) float32 or null: the step's signal (1 logp, 2 margin,
+// 3 entropy, 4 margin + alpha logp) is added on the rows not yet finished.
 extern "C" int i2l_vocab_argmax_step(const void* h, const void* w_out, const void* b_out,
-                                     void* tokens, void* finished, void* out, int t, int T_len,
-                                     int B, int H, int Vp, int end_id, int pad_id, int dtype,
-                                     void* stream) {
-  if (B <= 0 || H <= 0 || Vp <= 0 || t < 0 || t >= T_len || tokens == nullptr)
+                                     void* tokens, void* finished, void* out, void* score,
+                                     int signal, float alpha, int t, int T_len, int B, int H,
+                                     int Vp, int end_id, int pad_id, int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || Vp <= 0 || t < 0 || t >= T_len || tokens == nullptr ||
+      (score != nullptr && (signal < 1 || signal > 4)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == i2l::kF32)
-    return (int)launch_vocab<float>(h, w_out, b_out, tokens, finished, out, t, T_len, B, H, Vp,
-                                    end_id, pad_id, s);
+    return (int)launch_vocab<float>(h, w_out, b_out, tokens, finished, out, score, signal, alpha,
+                                    t, T_len, B, H, Vp, end_id, pad_id, s);
   if (dtype == i2l::kBF16)
-    return (int)launch_vocab<__nv_bfloat16>(h, w_out, b_out, tokens, finished, out, t, T_len, B, H,
-                                            Vp, end_id, pad_id, s);
+    return (int)launch_vocab<__nv_bfloat16>(h, w_out, b_out, tokens, finished, out, score, signal,
+                                            alpha, t, T_len, B, H, Vp, end_id, pad_id, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,16 +1,21 @@
 """CNN image encoder (counterpart of ``img2latex_tpu/models/encoder.py::CNNEncoder``).
 
 Each block is conv3x3 (SAME) + ReLU + maxpool 2x2; a Dense head + ReLU maps
-the flattened feature map to one (B, E) embedding ("vector" memory).
+the feature map to the memory:
+
+* ``output="vector"``: the flattened map -> one (B, E) embedding;
+* ``output="grid"``: each of the W' feature columns -> one (B, W', E) slot
+  (``encoder.py:245-251``: NHWC to (B, W', H'·C), rows in (h, c) order).
 
 * Block 0 (one input channel) goes through the conv1-pool kernel's wrapper
   (:func:`~img2latex_tpu_torch.ops.conv1_phase.conv1_pool`): NHWC in, NCHW
   out, bias added in float32 as the TPU kernel adds it.
 * Blocks 1..n are ``conv2d`` + ReLU + ``max_pool2d`` on NCHW, as the JAX
   package leaves them to XLA outside any Pallas kernel.
-* The head flattens NCHW in (c, h, w) order.  The JAX package flattens NHWC
-  in (h, w, c) order; :mod:`img2latex_tpu_torch.bridge` permutes the head's
-  rows when it loads flax weights.
+* The vector head flattens NCHW in (c, h, w) order.  The JAX package
+  flattens NHWC in (h, w, c) order; :mod:`img2latex_tpu_torch.bridge`
+  permutes the head's rows when it loads flax weights.  The grid head takes
+  NCHW to (B, W', H', C) first, so its rows are the JAX (h·C + c) already.
 
 Parameters are kept in float32 and cast to the compute type at use, as flax
 does with ``dtype`` / ``param_dtype``.
@@ -41,8 +46,8 @@ class CNNEncoder(nn.Module):
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        if output != "vector":
-            raise NotImplementedError("only output='vector' is ported; the grid head comes later")
+        if output not in ("vector", "grid"):
+            raise ValueError(f"output must be 'vector' or 'grid', got {output!r}")
         if channels != 1 or kernel_size != 3 or pool_size != 2:
             raise NotImplementedError(
                 "the ported encoder takes 1-channel images, 3x3 convs and 2x2 pools"
@@ -50,13 +55,14 @@ class CNNEncoder(nn.Module):
         if img_height % 2 or img_width % 2:
             raise ValueError("block 0 needs an even canvas height and width")
         self.dtype = dtype
+        self.output = output
         self.convs = nn.ModuleList()
         cin, h, w = channels, img_height, img_width
         for filters in conv_filters:
             self.convs.append(nn.Conv2d(cin, filters, kernel_size, padding=kernel_size // 2))
             cin, h, w = filters, h // pool_size, w // pool_size
         self.feature_shape: Tuple[int, int, int] = (cin, h, w)  # (C, H', W') after the stack
-        self.head = nn.Linear(cin * h * w, embedding_dim)
+        self.head = nn.Linear(cin * h if output == "grid" else cin * h * w, embedding_dim)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, H, W, 1) float NHWC -> conv feature map (B, C, H', W') NCHW."""
@@ -69,6 +75,11 @@ class CNNEncoder(nn.Module):
         return y
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, H, W, 1) float NHWC -> (B, E)."""
-        y = self.features(x).flatten(1)
+        """x (B, H, W, 1) float NHWC -> (B, E) vector or (B, W', E) grid."""
+        y = self.features(x)
+        if self.output == "grid":
+            B, C, Hf, Wf = y.shape
+            y = y.permute(0, 3, 2, 1).reshape(B, Wf, Hf * C)
+        else:
+            y = y.flatten(1)
         return F.relu(F.linear(y, self.head.weight.to(self.dtype), self.head.bias.to(self.dtype)))

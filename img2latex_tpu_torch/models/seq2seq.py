@@ -28,16 +28,22 @@ class Seq2SeqModel(nn.Module):
         self.decoder = decoder
 
     def encode(self, images: torch.Tensor) -> torch.Tensor:
-        """images (B, H, W, C) float NHWC -> memory (B, 1, E)."""
-        return self.encoder(images)[:, None, :]
+        """images (B, H, W, C) float NHWC -> memory (B, 1, E) vector or (B, W', E) grid."""
+        out = self.encoder(images)
+        return out[:, None, :] if out.dim() == 2 else out
 
     def forward(self, images: torch.Tensor, target_sequences: torch.Tensor) -> torch.Tensor:
         """Teacher-forced logits (B, T-1, V) for inputs ``target_sequences[:, :-1]``."""
         return self.decoder(self.encode(images), target_sequences[:, :-1])
 
-    def decode_step(self, memory: torch.Tensor, token: torch.Tensor,
-                    carry: Carry) -> Tuple[torch.Tensor, Carry]:
-        return self.decoder.decode_step(memory, token, carry)
+    def decode_step(self, memory: torch.Tensor, token: torch.Tensor, carry: Carry,
+                    mem_proj: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Carry]:
+        return self.decoder.decode_step(memory, token, carry, mem_proj=mem_proj)
+
+    def memory_proj(self, memory: torch.Tensor) -> Optional[torch.Tensor]:
+        """The attention's step-invariant memory projection (B, S, A), or None
+        where the decoder does not attend."""
+        return self.decoder.memory_proj(memory)
 
     def init_carry(self, batch_size: int, device=None) -> Carry:
         return self.decoder.init_carry(batch_size, device)
@@ -46,8 +52,9 @@ class Seq2SeqModel(nn.Module):
 def init_weights(model: Seq2SeqModel, seed: int = 0) -> None:
     """Fill every parameter from ``numpy.random.default_rng(seed)`` with the
     flax initializers' distributions: LeCun normal for conv and dense
-    kernels, zero biases, normal(0, 1/sqrt(V)) embeddings, and
-    U(-1/sqrt(H), 1/sqrt(H)) for the LSTM."""
+    kernels (the attention's ``attn`` and ``v`` too), zero biases,
+    normal(0, 1/sqrt(V)) embeddings, and U(-1/sqrt(H), 1/sqrt(H)) for the
+    LSTM."""
     rng = np.random.default_rng(seed)
     hidden = model.decoder.hidden_dim
     with torch.no_grad():
@@ -70,8 +77,6 @@ def build_model(cfg: Config, vocab_size: int, device: Optional[str] = None,
     """The CNN-LSTM of ``cfg`` on ``device`` (the card unless ``"cpu"`` is
     named), computing in ``cfg.hardware.compute_dtype``, with weights from
     ``numpy.random.default_rng(seed)`` (:func:`init_weights`)."""
-    if cfg.model.memory != "vector":
-        raise NotImplementedError("model.memory='grid' is not ported yet; use 'vector'")
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.hardware.compute_dtype)
     enc = cfg.model.encoder.cnn
@@ -91,6 +96,8 @@ def build_model(cfg: Config, vocab_size: int, device: Optional[str] = None,
         embedding_dim=cfg.model.embedding_dim,
         hidden_dim=cfg.model.decoder.hidden_dim,
         lstm_layers=cfg.model.decoder.lstm_layers,
+        # vector memory never attends, and flax creates no attention leaves for it
+        use_attention=cfg.model.decoder.attention and cfg.model.memory == "grid",
         dtype=dtype,
     )
     model = Seq2SeqModel(encoder, decoder)

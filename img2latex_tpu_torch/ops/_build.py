@@ -35,14 +35,18 @@ LINK_FLAGS = ARCH_FLAGS + ["-shared", "-Xcompiler", "-fPIC"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float
 # C signature of every exported function: argument types, in order.
 SIGNATURES = {
     # x, taps, bias, out, B, H, W, Cout, dtype, stream
     "i2l_conv1_pool": [P, P, P, P, I, I, I, I, I, P],
     # tokens, emb, E0, x1, E1, h_in, w_ih, w_hh, b, c, h_out, B, H, dtype, stream
     "i2l_lstm_layer_step": [P, P, I, P, I, P, P, P, P, P, P, I, I, I, P],
-    # h, w_out, b_out, tokens, finished, out, t, T, B, H, Vp, end_id, pad_id, dtype, stream
-    "i2l_vocab_argmax_step": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    # h, w_out, b_out, tokens, finished, out, score, signal, alpha, t, T, B, H, Vp, end_id,
+    # pad_id, dtype, stream
+    "i2l_vocab_argmax_step": [P, P, P, P, P, P, P, I, F, I, I, I, I, I, I, I, I, P],
+    # h, w_h, v, u, mem, hw, ctx, B, S, E, H, A, dtype, stream
+    "i2l_attend_step": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

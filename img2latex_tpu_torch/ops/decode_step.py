@@ -1,21 +1,28 @@
 """Whole greedy decode of the LSTM decoder, vector memory.
 
 Replaces the TPU kernel ``img2latex_tpu/ops/pallas/decode_step.py::pallas_full_greedy_decode``
-(``pl.pallas_call`` at line 523; ``early_exit=False``, no scores).  The TPU
-kernel keeps all decoder weights (about 11.5 MB in bf16 at E=H=512, L=2)
-in VMEM for the 141 steps; a Hopper SM has 227 KB of shared memory, so here
-the weights are served from the 50 MB L2 and each step is L + 1 launches of
-two hand-written kernels (``csrc/greedy_decode.cu``):
+(``pl.pallas_call`` at line 523), ``early_exit`` and the per-row scores
+included.  The TPU kernel keeps all decoder weights (about 11.5 MB in bf16
+at E=H=512, L=2) in VMEM for the 141 steps; a Hopper SM has 227 KB of
+shared memory, so here the weights are served from the 50 MB L2 and each
+step is L + 1 launches of two hand-written kernels (``csrc/greedy_decode.cu``):
 
 * :func:`lstm_layer_step` - one LSTM layer: the gate product
   ``[emb[tok]; ctx] @ W_ih + h @ W_hh + b`` (the embedding is a row gather
   inside layer 0) fused with the gate math in float32; carries are stored in
   the compute type, as the TPU kernel stores them;
 * :func:`vocab_argmax_step` - the vocab product fused with the row argmax
-  (lowest index wins ties), the PAD-after-END rule and the token store.
+  (lowest index wins ties), the PAD-after-END rule, the token store and,
+  when asked, the step's confidence signal added to a per-row score; the
+  logits never reach device memory.
 
-:func:`greedy_decode` is the host loop over the steps.  The same two
-launches make one greedy step, :func:`decode_step`, the counterpart of
+:func:`greedy_decode` is the host loop over the steps.  Its context comes
+from a per-step hook: the constant context here, additive attention over
+grid memory in :mod:`img2latex_tpu_torch.ops.grid_decode`.  With
+``early_exit`` the output is PAD-filled first and the host reads the
+all-finished flag every :data:`EARLY_EXIT_EVERY` steps (each read waits for
+the card), stopping once every row has emitted END.  The same two launches
+make one greedy step, :func:`decode_step`, the counterpart of
 ``decode_step.py::fused_decode_step`` (``pl.pallas_call`` at line 176).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
@@ -24,14 +31,16 @@ PyTorch version (``*_plain``) for CPU tensors.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from img2latex_tpu_torch.decoding.decode import NEG_INF, parse_signal, step_signal
 from img2latex_tpu_torch.ops import _build
 
-NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SIGNAL_CODES = {"logp": 1, "margin": 2, "entropy": 3, "margin_logp": 4}  # 0: no score
+EARLY_EXIT_EVERY = 8  # steps between the host's reads of the all-finished flag
 
 
 def _round_up(x: int, m: int) -> int:
@@ -149,7 +158,8 @@ lstm_layer_step.launches = 0
 
 
 def vocab_argmax_step_plain(h, w_out, b_out, tokens, finished, out, t: int,
-                            end_id: int, pad_id: int,
+                            end_id: int, pad_id: int, score: Optional[torch.Tensor] = None,
+                            signal: str = "logp",
                             margins: Optional[torch.Tensor] = None) -> None:
     """Plain version of :func:`vocab_argmax_step`.  ``margins`` (B, T) f32,
     when given, receives the top-1 minus top-2 logit of step ``t``."""
@@ -158,6 +168,9 @@ def vocab_argmax_step_plain(h, w_out, b_out, tokens, finished, out, t: int,
     if margins is not None:
         top2 = torch.topk(logits, 2, dim=-1).values
         margins[:, t] = top2[:, 0] - top2[:, 1]
+    if score is not None:
+        live = 1.0 if finished is None else (finished == 0).float()
+        score += step_signal(logits, nxt, signal) * live
     if finished is not None:
         nxt = torch.where(finished.bool(), torch.full_like(nxt, pad_id), nxt)
         finished.copy_(torch.maximum(finished, (nxt == end_id).to(torch.int32)))
@@ -167,13 +180,17 @@ def vocab_argmax_step_plain(h, w_out, b_out, tokens, finished, out, t: int,
 
 
 def vocab_argmax_step(h, w_out, b_out, tokens, finished, out, t: int,
-                      end_id: int, pad_id: int) -> None:
+                      end_id: int, pad_id: int, score: Optional[torch.Tensor] = None,
+                      signal: str = "logp") -> None:
     """``nxt = argmax(h @ w_out + b_out)`` per row (float32 logits, lowest
     index wins ties).  With ``finished`` (B,) int32: finished rows emit
     ``pad_id`` and a row that emits ``end_id`` becomes finished.  The token
-    goes to ``tokens`` (B,) and, with ``out`` (B, T), to ``out[:, t]``."""
+    goes to ``tokens`` (B,) and, with ``out`` (B, T), to ``out[:, t]``.
+    With ``score`` (B,) float32, the step's ``signal`` (``decoding.decode.step_signal``)
+    is added to it on the rows not finished before this step."""
     if h.device.type == "cpu":
-        return vocab_argmax_step_plain(h, w_out, b_out, tokens, finished, out, t, end_id, pad_id)
+        return vocab_argmax_step_plain(h, w_out, b_out, tokens, finished, out, t, end_id, pad_id,
+                                       score=score, signal=signal)
     if h.device.type != "cuda":
         raise ValueError(f"vocab_argmax_step: unsupported device {h.device}")
     B, H = h.shape
@@ -183,12 +200,15 @@ def vocab_argmax_step(h, w_out, b_out, tokens, finished, out, t: int,
     if tuple(w_out.shape) != (H, Vp) or tuple(b_out.shape) != (Vp,) or b_out.dtype != torch.float32:
         raise ValueError("vocab_argmax_step: w_out must be (H, Vp), b_out float32 (Vp,)")
     ints = [tokens] + [x for x in (finished, out) if x is not None]
-    for x in [h, w_out, b_out] + ints:
+    for x in [h, w_out, b_out] + ints + ([score] if score is not None else []):
         if not x.is_contiguous() or x.device != h.device:
             raise ValueError("vocab_argmax_step: operands must be contiguous and on one device")
     for x in ints:
         if x.dtype != torch.int32 or x.shape[0] != B:
             raise ValueError("vocab_argmax_step: tokens/finished/out must be int32 with B rows")
+    if score is not None and (score.dtype != torch.float32 or tuple(score.shape) != (B,)):
+        raise ValueError("vocab_argmax_step: score must be float32 (B,)")
+    name, alpha = parse_signal(signal)
     T = 1 if out is None else out.shape[1]
     if not 0 <= t < T:
         raise ValueError(f"vocab_argmax_step: step {t} outside 0..{T - 1}")
@@ -196,6 +216,8 @@ def vocab_argmax_step(h, w_out, b_out, tokens, finished, out, t: int,
         h.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), tokens.data_ptr(),
         None if finished is None else finished.data_ptr(),
         None if out is None else out.data_ptr(),
+        None if score is None else score.data_ptr(),
+        0 if score is None else SIGNAL_CODES[name], alpha,
         t, T, B, H, Vp, end_id, pad_id, _DTYPES[h.dtype],
         torch.cuda.current_stream(h.device).cuda_stream,
     )
@@ -211,23 +233,42 @@ vocab_argmax_step.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _decode(layer_step, vocab_step, packed, ctx, max_length, start_id, end_id, pad_id,
-            margins=None):
+# ctx_of(h_top (B, H) compute type) -> context (B, E) compute type
+ContextFn = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _decode(layer_step, vocab_step, packed, ctx_of: ContextFn, B: int, device,
+            max_length, start_id, end_id, pad_id, early_exit=False, return_scores=False,
+            signal="logp", return_margins=False):
+    """The loop shared by both memory kinds: per step, the context from
+    ``ctx_of`` (given the previous step's top-layer h, zero at t = 0), the L
+    layer launches, then the vocab launch.  Returns tokens (B, T) int32,
+    followed by the (B,) float32 scores with ``return_scores`` and by the
+    (B, T) float32 top-2 margins with ``return_margins`` (plain versions only)."""
     L = int(packed["num_layers"])
     H = int(packed["hidden_dim"])
     dtype = packed["emb"].dtype
-    B = ctx.shape[0]
-    dev = ctx.device
-    ctx = ctx.to(dtype).contiguous()
-    tokens = torch.full((B,), start_id, dtype=torch.int32, device=dev)
-    finished = torch.zeros((B,), dtype=torch.int32, device=dev)
-    out = torch.empty((B, max_length), dtype=torch.int32, device=dev)
-    h = torch.zeros((2, L, B, H), dtype=dtype, device=dev)  # ping-pong: read one, write the other
-    c = torch.zeros((L, B, H), dtype=dtype, device=dev)
+    tokens = torch.full((B,), start_id, dtype=torch.int32, device=device)
+    finished = torch.zeros((B,), dtype=torch.int32, device=device)
+    if early_exit:  # the steps that are skipped would emit PAD
+        out = torch.full((B, max_length), pad_id, dtype=torch.int32, device=device)
+    else:
+        out = torch.empty((B, max_length), dtype=torch.int32, device=device)
+    res = (out,)
+    extra = {}
+    if return_scores:
+        extra.update(score=torch.zeros((B,), dtype=torch.float32, device=device), signal=signal)
+        res += (extra["score"],)
+    if return_margins:
+        extra["margins"] = torch.zeros((B, max_length), dtype=torch.float32, device=device)
+        res += (extra["margins"],)
+    h = torch.zeros((2, L, B, H), dtype=dtype, device=device)  # ping-pong: read one, write the other
+    c = torch.zeros((L, B, H), dtype=dtype, device=device)
     cur = 0
-    extra = {} if margins is None else {"margins": margins}
     for t in range(max_length):
-        x1 = ctx
+        if early_exit and t % EARLY_EXIT_EVERY == 0 and t > 0 and bool(finished.all()):
+            break
+        x1 = ctx_of(h[cur, L - 1])
         for i in range(L):
             layer_step(
                 tokens if i == 0 else None, packed["emb"] if i == 0 else None, x1,
@@ -238,29 +279,35 @@ def _decode(layer_step, vocab_step, packed, ctx, max_length, start_id, end_id, p
         vocab_step(x1, packed["w_out"], packed["b_out"], tokens, finished, out, t,
                    end_id, pad_id, **extra)
         cur = 1 - cur
-    return out
+    return res if len(res) > 1 else out
+
+
+def _vector(layer_step, vocab_step, packed, ctx, *args, **kwargs):
+    ctx = ctx.to(packed["emb"].dtype).contiguous()
+    return _decode(layer_step, vocab_step, packed, lambda h_top: ctx, ctx.shape[0], ctx.device,
+                   *args, **kwargs)
 
 
 def greedy_decode(packed: Dict[str, Any], ctx: torch.Tensor, max_length: int,
-                  start_id: int, end_id: int, pad_id: int) -> torch.Tensor:
+                  start_id: int, end_id: int, pad_id: int, early_exit: bool = False,
+                  return_scores: bool = False, signal: str = "logp"):
     """Greedy decode of all rows: ctx (B, E) -> tokens (B, max_length) int32,
-    END kept and PAD after it.  CUDA tensors run the kernels; CPU tensors
-    run their plain versions."""
-    return _decode(lstm_layer_step, vocab_argmax_step, packed, ctx, max_length,
-                   start_id, end_id, pad_id)
+    END kept and PAD after it; with ``return_scores`` also the (B,) float32
+    sums of ``signal`` over each row's live steps.  CUDA tensors run the
+    kernels; CPU tensors run their plain versions."""
+    return _vector(lstm_layer_step, vocab_argmax_step, packed, ctx, max_length, start_id, end_id,
+                   pad_id, early_exit, return_scores, signal)
 
 
 def greedy_decode_plain(packed: Dict[str, Any], ctx: torch.Tensor, max_length: int,
-                        start_id: int, end_id: int, pad_id: int,
+                        start_id: int, end_id: int, pad_id: int, early_exit: bool = False,
+                        return_scores: bool = False, signal: str = "logp",
                         return_margins: bool = False):
     """:func:`greedy_decode` through the plain versions on any device.  With
-    ``return_margins`` also returns (B, T) float32 top-1 minus top-2 logits."""
-    margins = None
-    if return_margins:
-        margins = torch.zeros((ctx.shape[0], max_length), dtype=torch.float32, device=ctx.device)
-    out = _decode(lstm_layer_step_plain, vocab_argmax_step_plain, packed, ctx, max_length,
-                  start_id, end_id, pad_id, margins=margins)
-    return (out, margins) if return_margins else out
+    ``return_margins`` the last output is (B, T) float32 top-1 minus top-2
+    logits of every step."""
+    return _vector(lstm_layer_step_plain, vocab_argmax_step_plain, packed, ctx, max_length,
+                   start_id, end_id, pad_id, early_exit, return_scores, signal, return_margins)
 
 
 def _step(layer_step, vocab_step, packed, tokens, ctx, h, c):

@@ -1,0 +1,158 @@
+"""Whole greedy decode of the LSTM decoder over grid memory (S > 1).
+
+Replaces the TPU kernel ``img2latex_tpu/ops/pallas/grid_decode.py::pallas_full_grid_greedy_decode``
+(``pl.pallas_call`` at line 373), ``early_exit`` and the per-row scores
+included.  That kernel runs the vector decode loop with a context that
+attends, every step, from the previous top-layer h over the memory
+(B, S, E) and its projection ``U = memory @ W_m + b`` (B, S, A), both held
+in VMEM for the whole decode.  Here the loop is
+:func:`img2latex_tpu_torch.ops.decode_step._decode` (the LSTM and vocab
+kernels of ``csrc/greedy_decode.cu``) and its context hook is
+:func:`attend_step`, the hand-written attention of ``csrc/grid_attend.cu``,
+which streams U and the memory from device memory every step: at B = 512
+they are 65.5 MB in bf16, more than the 50 MB L2.
+
+* :func:`pack_attention_weights` - ``w_h`` (H, A), ``w_m`` (E, A), ``v``
+  (A,) in the compute type, ``b`` (A,) float32 (``grid_decode.py:63-97``);
+* :func:`grid_memory_proj` - U once per batch, a plain product outside the
+  kernel, as the JAX package leaves it to XLA (``grid_decode.py:100-120``);
+* :func:`attend_step` / :func:`attend_step_plain` - one attention step;
+* :func:`grid_greedy_decode` / :func:`grid_greedy_decode_plain`.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+PyTorch version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from img2latex_tpu_torch.ops import _build
+from img2latex_tpu_torch.ops.decode_step import (
+    _DTYPES,
+    _decode,
+    lstm_layer_step,
+    lstm_layer_step_plain,
+    vocab_argmax_step,
+    vocab_argmax_step_plain,
+)
+
+
+def pack_attention_weights(decoder, dtype: torch.dtype) -> Dict[str, Any]:
+    """The attention weights of an :class:`~img2latex_tpu_torch.models.decoder.LSTMDecoder`
+    in the kernel's layout: ``attn.weight`` (A, H+E) split into ``w_h``
+    (H, A) and ``w_m`` (E, A)."""
+    att = decoder.cell.attention
+    H = decoder.hidden_dim
+    with torch.no_grad():
+        w = att.attn.weight.detach().float()  # (A, H + E), h columns first
+        return {
+            "w_h": w[:, :H].t().to(dtype).contiguous(),
+            "w_m": w[:, H:].t().to(dtype).contiguous(),
+            "b": att.attn.bias.detach().float().contiguous(),
+            "v": att.v.weight.detach()[0].to(dtype).contiguous(),
+            "attn_dim": w.shape[0],
+            "mem_dim": w.shape[1] - H,
+            "hidden_dim": H,
+        }
+
+
+def grid_memory_proj(att: Dict[str, Any], memory: torch.Tensor) -> torch.Tensor:
+    """U = memory @ W_m + b (B, S, A): the compute-type operands, summed in
+    float32 and rounded once to the compute type."""
+    dtype = att["w_m"].dtype
+    u = torch.matmul(memory.to(dtype).float(), att["w_m"].float()) + att["b"]
+    return u.to(dtype).contiguous()
+
+
+def attend_step_plain(h, w_h, v, u, mem, ctx, hw=None) -> torch.Tensor:
+    """Plain version of :func:`attend_step` (same arguments, same effect);
+    ``hw`` is unused."""
+    dtype = u.dtype
+    hw_ = (h.float() @ w_h.float()).to(dtype)
+    energy = torch.tanh(u + hw_[:, None, :])
+    scores = (energy * v).float().sum(-1)
+    w = torch.softmax(scores, dim=-1).to(dtype)
+    ctx.copy_((w[:, :, None] * mem).float().sum(1).to(dtype))
+    return ctx
+
+
+def attend_step(h, w_h, v, u, mem, ctx, hw=None) -> torch.Tensor:
+    """One additive-attention step for all rows, into ``ctx`` (B, E):
+    ``softmax_s(sum_a tanh(U + h @ W_h) v) . memory``, rounded to the
+    compute type where ``grid_decode.py::_attend`` rounds (hw, the energy,
+    the products, the weights).  h (B, H), w_h (H, A), v (A,), u (B, S, A),
+    mem (B, S, E), all of one compute type; ``hw`` (B, A) is scratch for
+    ``h @ W_h``, allocated here when not given.  Returns ``ctx``."""
+    if h.device.type == "cpu":
+        return attend_step_plain(h, w_h, v, u, mem, ctx)
+    if h.device.type != "cuda":
+        raise ValueError(f"attend_step: unsupported device {h.device}")
+    B, H = h.shape
+    _, S, E = mem.shape
+    A = w_h.shape[1]
+    dtype = h.dtype
+    if dtype not in _DTYPES:
+        raise TypeError(f"attend_step: dtype {dtype} is not float32 or bfloat16")
+    if hw is None:
+        hw = torch.empty((B, A), dtype=dtype, device=h.device)
+    shapes = {"w_h": (w_h, (H, A)), "v": (v, (A,)), "u": (u, (B, S, A)), "mem": (mem, (B, S, E)),
+              "ctx": (ctx, (B, E)), "hw": (hw, (B, A))}
+    for name, (x, shape) in shapes.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"attend_step: {name} is {tuple(x.shape)}, expected {shape}")
+    for x in [h] + [x for x, _ in shapes.values()]:
+        if x.dtype != dtype or not x.is_contiguous() or x.device != h.device:
+            raise ValueError("attend_step: operands must be contiguous, of one dtype, on one device")
+    err = _build.lib().i2l_attend_step(
+        h.data_ptr(), w_h.data_ptr(), v.data_ptr(), u.data_ptr(), mem.data_ptr(), hw.data_ptr(),
+        ctx.data_ptr(), B, S, E, H, A, _DTYPES[dtype],
+        torch.cuda.current_stream(h.device).cuda_stream,
+    )
+    _build.check(err, "i2l_attend_step")
+    attend_step.launches += 1
+    return ctx
+
+
+attend_step.launches = 0
+
+
+def _grid(layer_step, vocab_step, attend, packed, att, memory, u, *args):
+    dtype = packed["emb"].dtype
+    B, _, E = memory.shape
+    mem = memory.to(dtype).contiguous()
+    u = u.to(dtype).contiguous()
+    ctx = torch.empty((B, E), dtype=dtype, device=mem.device)
+    hw = torch.empty((B, att["attn_dim"]), dtype=dtype, device=mem.device)
+
+    def ctx_of(h_top):
+        return attend(h_top, att["w_h"], att["v"], u, mem, ctx, hw)
+
+    return _decode(layer_step, vocab_step, packed, ctx_of, B, mem.device, *args)
+
+
+def grid_greedy_decode(packed: Dict[str, Any], att: Dict[str, Any], memory: torch.Tensor,
+                       u: torch.Tensor, max_length: int, start_id: int, end_id: int, pad_id: int,
+                       early_exit: bool = False, return_scores: bool = False,
+                       signal: str = "logp"):
+    """Greedy decode over grid memory: memory (B, S, E) and its projection
+    ``u`` (:func:`grid_memory_proj`) -> tokens (B, max_length) int32, END
+    kept and PAD after it; with ``return_scores`` also the (B,) float32 sums
+    of ``signal`` over each row's live steps.  CUDA tensors run the kernels;
+    CPU tensors run their plain versions."""
+    return _grid(lstm_layer_step, vocab_argmax_step, attend_step, packed, att, memory, u,
+                 max_length, start_id, end_id, pad_id, early_exit, return_scores, signal)
+
+
+def grid_greedy_decode_plain(packed: Dict[str, Any], att: Dict[str, Any], memory: torch.Tensor,
+                             u: torch.Tensor, max_length: int, start_id: int, end_id: int,
+                             pad_id: int, early_exit: bool = False, return_scores: bool = False,
+                             signal: str = "logp", return_margins: bool = False):
+    """:func:`grid_greedy_decode` through the plain versions on any device.
+    With ``return_margins`` the last output is (B, T) float32 top-1 minus
+    top-2 logits of every step."""
+    return _grid(lstm_layer_step_plain, vocab_argmax_step_plain, attend_step_plain, packed, att,
+                 memory, u, max_length, start_id, end_id, pad_id, early_exit, return_scores,
+                 signal, return_margins)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Ragged shapes the main path does not reach (batches and widths that are not
-multiples of the kernels' tiles, one row, exact argmax ties) at small sizes.
+multiples of the kernels' tiles, one row, exact argmax ties, attention
+widths A != H, slot counts S that are not multiples of 8, early exit and
+the score signals) at small sizes.
 Marked ``cuda``: without a CUDA device every test skips.  Imports no JAX, so
 it runs on the card's machine with
 
@@ -14,6 +16,7 @@ import torch
 
 from img2latex_tpu_torch.ops.conv1_phase import conv1_pool, conv1_pool_plain
 from img2latex_tpu_torch.ops import decode_step as ds
+from img2latex_tpu_torch.ops import grid_decode as ds_grid
 
 pytestmark = pytest.mark.cuda
 
@@ -154,3 +157,126 @@ def test_greedy_decode_ragged_batch(dev):
     for r in np.where(diff.any(axis=1))[0]:
         assert margins[r, first[r]].item() <= 1e-3, (r, first[r])
     assert got.max().item() < V
+
+
+def _attention_operands(dev, dtype, B, S, E, H, A, seed):
+    rng = np.random.default_rng(seed)
+    h = _t(rng.uniform(-1, 1, (B, H)), dev, dtype)
+    w_h = _t(rng.normal(size=(H, A)) / np.sqrt(H), dev, dtype)
+    v = _t(rng.normal(size=A) / np.sqrt(A), dev, dtype)
+    u = _t(rng.normal(size=(B, S, A)), dev, dtype)
+    mem = _t(np.maximum(rng.normal(size=(B, S, E)), 0), dev, dtype)
+    return h, w_h, v, u, mem
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,E,H,A", [(1, 3, 8, 16, 16), (33, 13, 40, 24, 56), (37, 100, 36, 48, 20),
+                                       (70, 7, 256, 96, 384), (5, 9, 30, 17, 11)])
+def test_attend_step(dev, dtype, B, S, E, H, A):
+    """Ragged shapes: B not a multiple of the product's 32 rows, S not a
+    multiple of 8, A != H, and widths that are not whole 16-byte groups (the
+    scalar-load instantiation)."""
+    h, w_h, v, u, mem = _attention_operands(dev, dtype, B, S, E, H, A, B + S + E)
+    got = ds_grid.attend_step(h, w_h, v, u, mem, torch.empty(B, E, device=dev, dtype=dtype))
+    ref = ds_grid.attend_step_plain(h, w_h, v, u, mem, torch.empty(B, E, device=dev, dtype=dtype))
+    assert got.dtype == dtype and tuple(got.shape) == (B, E)
+    # float32: sums in another order; bf16: 2 ulps of |ref| (a rounded weight or product may differ)
+    tol = dict(atol=1e-5, rtol=0) if dtype == torch.float32 else dict(atol=1e-5, rtol=2 * BF16_ULP)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+def test_attend_step_rejects_bad_input(dev):
+    h, w_h, v, u, mem = _attention_operands(dev, torch.float32, 4, 5, 8, 16, 16, 0)
+    ctx = torch.empty(4, 8, device=dev)
+    with pytest.raises(ValueError):
+        ds_grid.attend_step(h, w_h, v, u[:, :4], mem, ctx)  # S disagrees
+    with pytest.raises(ValueError):
+        ds_grid.attend_step(h, w_h, v.to(torch.bfloat16), u, mem, ctx)  # mixed dtypes
+
+
+def _small_decoder(dev, rng, E, H, V, Vp, L=2):
+    packed = {"num_layers": L, "hidden_dim": H, "vocab_padded": Vp, "vocab": V}
+    emb = np.zeros((Vp, E), np.float32)
+    emb[:V] = rng.normal(size=(V, E))
+    packed["emb"] = _t(emb, dev)
+    for i in range(L):
+        k = 2 * E if i == 0 else H
+        packed[f"w_ih_{i}"] = _t(rng.normal(size=(k, 4 * H)) / np.sqrt(k), dev)
+        packed[f"w_hh_{i}"] = _t(rng.normal(size=(H, 4 * H)) / np.sqrt(H), dev)
+        packed[f"b_{i}"] = _t(rng.normal(size=4 * H) * 0.1, dev)
+    w_out = np.zeros((H, Vp), np.float32)
+    w_out[:, :V] = rng.normal(size=(H, V))
+    b_out = np.full(Vp, -1e30, np.float32)
+    b_out[:V] = rng.normal(size=V) * 0.1
+    b_out[2] = b_out[:V].max() + 0.2  # END (id 2) ends rows at varied steps
+    packed["w_out"], packed["b_out"] = _t(w_out, dev), _t(b_out, dev)
+    return packed
+
+
+@pytest.mark.parametrize("signal", ["logp", "margin", "entropy", "margin_logp:0.5"])
+@pytest.mark.parametrize("B,H,Vp", [(1, 40, 128), (17, 64, 256), (33, 96, 512)])
+def test_vocab_argmax_step_scores(dev, signal, B, H, Vp):
+    rng = np.random.default_rng(B + H)
+    h = _t(rng.uniform(-1, 1, (B, H)), dev)
+    w = np.zeros((H, Vp), np.float32)
+    V = Vp - 37
+    w[:, :V] = rng.normal(size=(H, V))
+    w[:, 5] = w[:, 9]  # exact tie of columns 5 and 9 in every row
+    b = np.full(Vp, -1e30, np.float32)
+    b[:V] = rng.normal(size=V)
+    b[5] = b[9] = 30.0
+    w_out, b_out = _t(w, dev), _t(b, dev)
+    fin0 = torch.from_numpy((np.arange(B) % 4 == 1).astype(np.int32)).to(dev)
+    res = []
+    for step in (ds.vocab_argmax_step, ds.vocab_argmax_step_plain):
+        tok = torch.empty(B, dtype=torch.int32, device=dev)
+        fin = fin0.clone()
+        score = torch.full((B,), 0.5, device=dev)
+        step(h, w_out, b_out, tok, fin, None, 0, 2, 0, score=score, signal=signal)
+        res.append((tok, fin, score))
+    (tk, fk, sk), (tp, fp, sp) = res
+    assert torch.equal(tk, tp) and torch.equal(fk, fp)
+    assert torch.equal(sk[fin0 == 1], sp[fin0 == 1])  # finished rows add nothing
+    torch.testing.assert_close(sk, sp, atol=1e-4, rtol=1e-5)
+    if signal == "margin":  # the tie: the runner-up is the twin column
+        assert (sk[fin0 == 0] == 0.5).all()
+
+
+@pytest.mark.parametrize("kind", ["vector", "grid"])
+@pytest.mark.parametrize("B,S", [(37, 13), (5, 100)])
+def test_early_exit_and_scores_ragged(dev, kind, B, S):
+    rng = np.random.default_rng(B * S)
+    E, H, A, V, Vp, T = 40, 48, 48, 50, 128, 40
+    packed = _small_decoder(dev, rng, E, H, V, Vp)
+    mem = _t(np.maximum(rng.normal(size=(B, S, E)), 0), dev)
+    if kind == "grid":
+        att = {"w_h": _t(rng.normal(size=(H, A)) / np.sqrt(H), dev),
+               "w_m": _t(rng.normal(size=(E, A)) / np.sqrt(E), dev),
+               "b": _t(rng.normal(size=A) * 0.1, dev), "v": _t(rng.normal(size=A) / np.sqrt(A), dev),
+               "attn_dim": A, "mem_dim": E, "hidden_dim": H}
+        u = ds_grid.grid_memory_proj(att, mem)
+
+        def run(fn, **kw):
+            return fn(packed, att, mem, u, T, 1, 2, 0, **kw)
+
+        kernel, plain = ds_grid.grid_greedy_decode, ds_grid.grid_greedy_decode_plain
+    else:
+        def run(fn, **kw):
+            return fn(packed, mem[:, 0, :], T, 1, 2, 0, **kw)
+
+        kernel, plain = ds.greedy_decode, ds.greedy_decode_plain
+    full = run(kernel)
+    before = ds.vocab_argmax_step.launches
+    early, score = run(kernel, early_exit=True, return_scores=True, signal="margin")
+    steps = ds.vocab_argmax_step.launches - before
+    assert torch.equal(early, full)
+    ends = (full == 2).any(dim=1)
+    if bool(ends.all()):
+        assert steps < T
+    ref, ref_score, margins = run(plain, return_scores=True, signal="margin", return_margins=True)
+    diff = (full != ref).cpu().numpy()
+    first = diff.argmax(axis=1)
+    for r in np.where(diff.any(axis=1))[0]:
+        assert margins[r, first[r]].item() <= 1e-3, (r, first[r])
+    same = ~torch.from_numpy(diff.any(axis=1)).to(dev)
+    torch.testing.assert_close(score[same], ref_score[same], atol=1e-3, rtol=0)

@@ -2,9 +2,10 @@
 
 Both are built from the same flax weights at small shapes and decode the
 same uint8 canvases greedily in float32 on the CPU: token ids and LaTeX must
-be equal, also for a batch that is not a multiple of ``batch_size``.  Also:
-the port's entry points raise without a card unless ``device="cpu"`` is
-named.
+be equal, also for a batch that is not a multiple of ``batch_size``, for
+vector memory and for grid memory (with attention, and without it), with
+and without early exit.  Also: the port's entry points raise without a card
+unless ``device="cpu"`` is named.
 """
 
 import jax
@@ -26,9 +27,10 @@ from img2latex_tpu_torch.training.predictor import Predictor
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module")
-def pair():
+def _pair(memory="vector", attention=True, seed=1):
     cfg = JaxConfig()
+    cfg.model.memory = memory
+    cfg.model.decoder.attention = attention
     cfg.model.embedding_dim = 32
     cfg.model.decoder.hidden_dim = 32
     cfg.model.decoder.lstm_layers = 2
@@ -44,7 +46,7 @@ def pair():
     jtok.default_init()
     jmodel = jax_build_model(cfg, jtok.vocab_size)
     variables = jax.device_get(
-        jmodel.init(jax.random.PRNGKey(1), jnp.zeros((2, 16, 64, 1)), jnp.zeros((2, 5), jnp.int32))
+        jmodel.init(jax.random.PRNGKey(seed), jnp.zeros((2, 16, 64, 1)), jnp.zeros((2, 5), jnp.int32))
     )
     jpred = JaxPredictor(cfg, jmodel, variables["params"], {}, jtok, batch_size=4)
     tcfg = config_from_dict(cfg.to_dict())
@@ -52,6 +54,16 @@ def pair():
     tmodel = load_flax_params(build_model(tcfg, tok.vocab_size, device="cpu"), variables)
     tpred = Predictor(tcfg, tmodel, tok, batch_size=4, device="cpu")
     return jpred, tpred
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair()
+
+
+@pytest.fixture(scope="module")
+def grid_pair():
+    return _pair("grid", seed=2)
 
 
 def _images(n, seed=0):
@@ -116,6 +128,45 @@ def test_no_card_and_no_cpu_raises(monkeypatch):
 
 
 def test_grid_memory_not_ported():
-    cfg = config_from_dict({"model": {"memory": "grid"}})
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, 10, device="cpu")
+    """Grid memory is ported now: the model builds and encodes to (B, W', E)."""
+    cfg = config_from_dict({"model": {"memory": "grid", "embedding_dim": 16,
+                                      "decoder": {"hidden_dim": 24},
+                                      "encoder": {"cnn": {"img_height": 8, "img_width": 32,
+                                                          "conv_filters": [2, 4]}}},
+                            "hardware": {"compute_dtype": "float32"}})
+    model = build_model(cfg, 10, device="cpu")
+    with torch.no_grad():
+        memory = model.encode(torch.zeros(3, 8, 32, 1))
+        mem_proj = model.memory_proj(memory)
+    assert tuple(memory.shape) == (3, 8, 16)
+    assert tuple(mem_proj.shape) == (3, 8, 24)
+
+
+@pytest.mark.parametrize("n", [4, 7])
+def test_grid_ids_equal_jax_predictor(grid_pair, n):
+    jpred, tpred = grid_pair
+    imgs = _images(n, seed=20 + n)
+    ref = jpred.predict_batch(imgs, return_ids=True)
+    assert tpred.predict_batch(imgs, return_ids=True) == ref
+    assert tpred.predict_batch(imgs) == jpred.predict_batch(imgs)
+
+
+@pytest.mark.parametrize("memory", ["vector", "grid"])
+def test_early_exit_ids_equal(pair, grid_pair, memory):
+    jpred, tpred = pair if memory == "vector" else grid_pair
+    imgs = _images(5, seed=31)
+    ref = jpred.predict_batch(imgs, return_ids=True)
+    tpred.cfg.inference.early_exit = True
+    try:
+        got = tpred.predict_batch(imgs, return_ids=True)
+    finally:
+        tpred.cfg.inference.early_exit = False
+    assert got == ref
+
+
+def test_grid_without_attention_equals_jax_predictor():
+    """With attention off the context is memory[:, 0, :] for grid memory too."""
+    jpred, tpred = _pair("grid", attention=False, seed=3)
+    assert not hasattr(tpred.model.decoder.cell, "attention")
+    imgs = _images(4, seed=41)
+    assert tpred.predict_batch(imgs, return_ids=True) == jpred.predict_batch(imgs, return_ids=True)
