@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels with nvcc, holds each against its plain
-PyTorch version on the card, then drives the two greedy paths through
-``Predictor.predict_batch`` and checks that every kernel of each ran and
-that the output is right:
+PyTorch version on the card, then drives the two greedy paths and the grid
+beam and selective-beam paths through ``Predictor.predict_batch`` and
+checks that every kernel of each ran and that the output is right:
 
 * vector memory at bench.py's width: 64x800 canvas, filters [32, 64, 128],
   E = H = 512, 2 LSTM layers, vocab 503, 141 steps, bf16;
@@ -17,7 +17,9 @@ that the output is right:
 
 Weights are random, from a seed.  Also holds early exit (tokens equal to
 the full loop) and the four per-row score signals of both greedy decodes
-against their plain versions.
+against their plain versions, and the beam step, the attention over
+memories shared by K beams and the whole beam decode of both memory kinds
+(K = 5, with early exit and a length penalty) against theirs.
 
 Prints its findings on earlier lines, then a ``{"kernels": [...]}`` line,
 the card's name and power limit from nvidia-smi, and last
@@ -99,6 +101,56 @@ GRID_MARGIN_TOL = {"float32": 1e-3, "bfloat16": 1e-3}
 SCORE_ATOL = {"float32": 1e-3, "bfloat16": 0.1}
 SCORE_RTOL = MAX_LEN * 2.0**-23
 SIGNALS = ("logp", "margin", "entropy", "margin_logp:0.5")
+# Beam search, K = 5 beams a sample (PARITY.md's beam-5; length penalty 2.0 is
+# the grid flagship's best, artifacts/mathtext_hard_grid_v2/post_flagship.json).
+BEAM = 5
+LENGTH_PENALTY = 2.0
+SELECTIVE_FRAC = 0.2
+# beam_step alone: the kernel and its plain version compute the same float32
+# logits from the same inputs, with sums in another order.  Samples whose
+# plain top K + 1 totals hold two within BEAM_STEP_GAP of each other may pick
+# in another order and are left out of the exact comparison (at most 1% of
+# them); on the others tokens, parents, finished and gathered carries must be
+# equal and scores within BEAM_STEP_ATOL.
+BEAM_STEP_GAP = 1e-5
+BEAM_STEP_ATOL = 1e-4
+# Whole beam decode, at length penalty 2.0, held against the plain version
+# step by step through the two decodes' traces
+# (ops/beam_decode.py::beam_divergence).  Up to the first step at which a
+# sample's K tokens or parents differ, both decodes hold the same beams in the
+# same slots.  Before that step, what each step adds to a beam's score (its
+# token's log-probability) must agree within BEAM_LOGP_TOL (plus the rounding
+# of the float32 scores it is read from), and the scores within the score
+# tolerance.  At that step two of the sample's K + 1 best plain totals must be
+# within 2 BEAM_LOGP_TOL plus twice the largest difference of its beam scores
+# before it (a candidate's total moves by its beam's score difference and by
+# its log-probability's).  A sample whose histories agree throughout may pick
+# another best beam only if the plain choice's gap (the least change of two
+# beams' scores that changes it) is within that score difference.  At least
+# BEAM_MIN_ROW_MATCH of the best beams' tokens must be equal, and the
+# reference must end some rows and use at least BEAM_MIN_DISTINCT tokens (a
+# decode whose best beams all end at once checks nothing of the search).  The
+# search does not depend on the length penalty (it acts on the final choice
+# only), so penalty 0 is not run.
+# Readings on the H100 (float32 / bf16): log-probabilities added agree within
+# 6.1e-5 / 1.0e-3 (2.1e-3 end to end, where the scaled grid head makes
+# contexts of ~4, whose bf16 rounding step is 4x that of values near 1);
+# scores before a parting within 2.6e-3 / 0.032, so in bf16 63% of the grid
+# samples part at some step (the totals' median K-th/(K+1)-th gap is 0.010),
+# each where the rule allows; best tokens equal in 98.8-99.4% / 69.5-84.6% of
+# the rows.  The limits: float32 half the greedy rule's margin; bf16 2x the
+# largest seen (BEAM_E2E_LOGP_TOL end to end); rows 0.98 / 0.6.  Phase 8 also
+# checks that a bf16 decode through a beam step broken from step 10 on (the
+# gathered h of two beams swapped, parents recorded rotated, or 5e-3 added to
+# a score at every step) fails this rule.
+BEAM_LOGP_TOL = {"float32": 5e-5, "bfloat16": 2e-3}
+BEAM_E2E_LOGP_TOL = 4e-3
+BEAM_MIN_ROW_MATCH = {"float32": 0.98, "bfloat16": 0.6}
+BEAM_MIN_DISTINCT = 10
+# The grid path's beam end to end scales the grid head of the random model by
+# this, so that its memories spread across canvases as phase 8's random
+# memories do (see phase_grid_beam_end_to_end).
+HEAD_GAIN = 32.0
 
 
 def log(msg: str) -> None:
@@ -198,13 +250,13 @@ def log_profile(what: str, card: str, fn) -> None:
         t = getattr(e, "self_device_time_total", 0) or 0
         if t > 0:
             key = next((k for k in ("attend_hw_kernel", "attend_kernel", "lstm_layer_step_kernel",
-                                    "vocab_argmax_step_kernel") if k in e.key), "other")
+                                    "vocab_argmax_step_kernel", "beam_step_kernel") if k in e.key), "other")
             ms, n = by_kernel.get(key, (0.0, 0))
             by_kernel[key] = (ms + t / 1e3, n + e.count)
     busy = sum(ms for ms, _ in by_kernel.values())
     if busy > 0:
         log(f"{what} under torch.profiler: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
-            f"({100 * busy / wall_ms:.1f}%); by kernel (ms, launches): "
+            f"({100 * busy / wall_ms:.1f}%), device idle (host) {wall_ms - busy:.2f} ms; by kernel (ms, launches): "
             f"{json.dumps({k: [round(ms, 4), n] for k, (ms, n) in by_kernel.items()})} [{card}]")
     else:
         log(f"{what} under torch.profiler: no device time seen (not measured)")
@@ -487,12 +539,485 @@ def phase_grid_end_to_end(dev, card, gcfg, gmodel, tokenizer, images, kernels) -
         f"LSTM+vocab {(LAYERS * ms_l + ms_v) * MAX_LEN:.2f} ms")
 
 
+def _beam_step_operands(dev, rng, B, K, H, Vp, dtype, tie=False):
+    """Random beam-step operands at the main path's shapes: a vocab of
+    VOCAB columns padded to Vp, random scores with some samples at t = 0
+    (only beam 0 live), ~15% finished rows elsewhere; with ``tie`` each
+    sample's beams share h and score, so every candidate ties across its K
+    beams."""
+    import torch
+
+    N = B * K
+    h = rng.uniform(-1, 1, (N, H)).astype(np.float32)
+    scores = rng.uniform(-40, 0, N).astype(np.float32)
+    fin = (rng.uniform(size=N) < 0.15).astype(np.int32)
+    scores.reshape(B, K)[::7, 1:] = -1e30  # samples at t = 0, where nothing has ended yet
+    fin.reshape(B, K)[::7] = 0
+    if tie:
+        h = np.repeat(h[::K], K, axis=0)
+        scores = np.repeat(scores[::K], K)
+        fin[:] = 0
+    w = np.zeros((H, Vp), np.float32)
+    w[:, :VOCAB] = rng.standard_normal((H, VOCAB), dtype=np.float32) * 3 / np.sqrt(H)
+    b = np.full(Vp, -1e30, np.float32)
+    b[:VOCAB] = rng.standard_normal(VOCAB, dtype=np.float32) * BIAS_STD
+    carries = rng.uniform(-1, 1, (2, LAYERS, N, H)).astype(np.float32)
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(a).to(dev, dt)
+
+    return dict(h=t(h), w_out=t(w), b_out=t(b, torch.float32), scores=t(scores, torch.float32),
+                fin=torch.from_numpy(fin).to(dev), h_src=t(carries[0]), c_src=t(carries[1]))
+
+
+def _beam_step_run(step, op, K, out=None, **kw):
+    """One beam step on copies of the operands (into ``out`` when given)."""
+    import torch
+
+    N = op["h"].shape[0]
+    if out is None:
+        out = dict(scores=op["scores"].clone(), fin=op["fin"].clone(),
+                   tokens=torch.empty((N,), dtype=torch.int32, device=op["h"].device),
+                   tok_hist=torch.zeros((MAX_LEN, N), dtype=torch.int32, device=op["h"].device),
+                   par_hist=torch.zeros((MAX_LEN, N), dtype=torch.int32, device=op["h"].device),
+                   h_dst=torch.empty_like(op["h_src"]), c_dst=torch.empty_like(op["c_src"]))
+    step(op["h"], op["w_out"], op["b_out"], out["scores"], out["fin"], out["tokens"], out["tok_hist"],
+         out["par_hist"], 3, K, END_ID, 0, op["h_src"], out["h_dst"], op["c_src"], out["c_dst"], **kw)
+    return out
+
+
+def phase_beam_step(dev, rng, card: str, kernels: dict) -> None:
+    """beam_step against beam_step_plain at B = BATCH samples of K = BEAM
+    beams, both widths and both types, random and with forced exact ties."""
+    import torch
+
+    from img2latex_tpu_torch.ops.beam_decode import beam_step, beam_step_plain
+
+    B, K, Vp = BATCH, BEAM, 512
+    N = B * K
+    errs = {}
+    for width, H in (("vector", HIDDEN), ("grid", GRID_HIDDEN)):
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            for tie in (False, True):
+                op = _beam_step_operands(dev, rng, B, K, H, Vp, dtype, tie=tie)
+                got = _beam_step_run(beam_step, op, K)
+                gaps = torch.full((B, MAX_LEN, K), float("inf"), device=dev)
+                ref = _beam_step_run(beam_step_plain, op, K, gaps=gaps)
+                clear = gaps[:, 3].amin(dim=-1) > BEAM_STEP_GAP
+                if tie:
+                    clear = torch.ones_like(clear)  # exact ties on both sides: the lowest flat index wins
+                rows = clear.repeat_interleave(K)
+                bad = [k for k in ("tokens", "fin") if not torch.equal(got[k][rows], ref[k][rows])]
+                bad += [k for k in ("tok_hist", "par_hist") if not torch.equal(got[k][3][rows], ref[k][3][rows])]
+                bad += [k for k in ("h_dst", "c_dst") if not torch.equal(got[k][:, rows], ref[k][:, rows])]
+                err = (got["scores"][rows] - ref["scores"][rows]).abs().max().item()
+                errs[(width, name, tie)] = err
+                log(f"beam_step {width} H={H} {name}{' ties' if tie else ''} B={B} K={K}: "
+                    f"{int(clear.sum())}/{B} samples clear of near-ties (gap > {BEAM_STEP_GAP}); "
+                    f"mismatches {bad or 'none'}; score max abs err {err:.3g} (tol {BEAM_STEP_ATOL})")
+                check(not bad and err <= BEAM_STEP_ATOL and float(clear.float().mean()) >= 0.99,
+                      f"beam_step {width} {name} tie={tie} disagrees with its plain version")
+                if tie:
+                    par = got["par_hist"][3].view(B, K).long()
+                    check(torch.equal(par, torch.arange(K, device=dev).expand(B, K)),
+                          "beam_step ties: the picks are not beam 0..K-1 in order")
+    # timing at both widths, bf16; the kernels line keeps the grid path's
+    for width, H in (("vector", HIDDEN), ("grid", GRID_HIDDEN)):
+        op = _beam_step_operands(dev, rng, B, K, H, Vp, torch.bfloat16)
+        out_k = _beam_step_run(beam_step, op, K)
+        out_p = _beam_step_run(beam_step_plain, op, K)
+        ms_k = time_ms(lambda: _beam_step_run(beam_step, op, K, out_k), iters=50, warmup=5)
+        ms_p = time_ms(lambda: _beam_step_run(beam_step_plain, op, K, out_p), iters=20)
+        nbytes = (N * H * 2 + H * Vp * 2 + Vp * 4 + N * 4 * 2 * 2 + N * 4 * 3
+                  + 2 * LAYERS * N * H * 2 * 2)  # h, W_out, b_out, scores and finished r/w, tokens + history, carries r/w
+        flops = 2 * N * H * Vp
+        bnd, by = bound_ms(nbytes, flops, "bfloat16")
+        log(f"beam_step {width} bf16 B={B} K={K} H={H} Vp={Vp}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by}); no single PyTorch call computes log-softmax + per-sample K*V top-K "
+            f"+ carry gather [{card}]")
+    kernels["beam_step"] = dict(
+        name="beam_step", route="cuda", source="img2latex_tpu_torch/csrc/beam_step.cu",
+        replaces="img2latex_tpu/ops/pallas/beam_decode.py:335", max_abs_err=errs[("grid", "float32", False)],
+        ms=ms_k, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=None)
+
+
+def phase_attend_shared(dev, rng, card: str, kernels: dict) -> None:
+    """attend_step with rows_per_mem = BEAM (the K beams of a sample share
+    its memory) against its plain version at the grid flagship's width."""
+    import torch
+
+    from img2latex_tpu_torch.ops.grid_decode import attend_step, attend_step_plain
+
+    B, S, E, H, K = BATCH, GRID_S, GRID_EMBED, GRID_HIDDEN, BEAM
+    A, N = H, BATCH * BEAM
+    f32 = {
+        "h": rng.uniform(-1, 1, (N, H)),
+        "w_h": rng.standard_normal((H, A)) / np.sqrt(H),
+        "v": rng.standard_normal(A) / np.sqrt(A),
+        "u": rng.standard_normal((B, S, A)),
+        "mem": np.maximum(rng.standard_normal((B, S, E)), 0),
+    }
+    errs = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        t = {k: torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype) for k, a in f32.items()}
+        args = (t["h"], t["w_h"], t["v"], t["u"], t["mem"])
+        got = attend_step(*args, torch.empty((N, E), device=dev, dtype=dtype), rows_per_mem=K)
+        ref = attend_step_plain(*args, torch.empty((N, E), device=dev, dtype=dtype), rows_per_mem=K).float()
+        d = (got.float() - ref).abs()
+        errs[name] = d.max().item()
+        if name == "float32":
+            check(errs[name] <= ATTEND_F32_ATOL, f"attend_step[rows_per_mem={K}] f32 max abs err {errs[name]}")
+        else:
+            over = (d - ATTEND_BF16_RTOL * ref.abs()).max().item()
+            check(over <= ATTEND_F32_ATOL, f"attend_step[rows_per_mem={K}] bf16: max |err| - 2^-6 |ref| = {over}")
+    log(f"attend_step rows_per_mem={K} B={B} (N={N} rows) S={S} E={E} H=A={H}: f32 max abs err "
+        f"{errs['float32']:.3g} (tol {ATTEND_F32_ATOL}); bf16 vs bf16 plain max abs err {errs['bfloat16']:.3g} "
+        f"(tol {ATTEND_BF16_RTOL:.4g} |ref| + {ATTEND_F32_ATOL})")
+    ctx = torch.empty((N, E), device=dev, dtype=torch.bfloat16)
+    hw = torch.empty((N, A), device=dev, dtype=torch.bfloat16)
+    ms_k = time_ms(lambda: attend_step(*args, ctx, hw, rows_per_mem=K), iters=50, warmup=5)
+    ms_p = time_ms(lambda: attend_step_plain(*args, ctx, rows_per_mem=K), iters=10)
+    # the memory and U once (not K times), h, W_h, v and ctx
+    nbytes = 2 * (B * S * (A + E) + N * H + H * A + A + N * E)
+    flops = 2 * N * H * A + 2 * N * S * A + 2 * N * S * E
+    bnd, by = bound_ms(nbytes, flops, "bfloat16")
+    log(f"attend_step[rows_per_mem={K}] bf16: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bnd:.4f} ms "
+        f"({by}); the kernel asks for {K * 2 * B * S * (A + E) / 1e6:.1f} MB of U and memory a step (each row "
+        f"its own block), the bound counts {2 * B * S * (A + E) / 1e6:.1f} MB [{card}]")
+    kernels[f"attend_step[rows_per_mem={K}]"] = dict(
+        name=f"attend_step[rows_per_mem={K}]", route="cuda", source="img2latex_tpu_torch/csrc/grid_attend.cu",
+        replaces="img2latex_tpu/ops/pallas/grid_decode.py:561", max_abs_err=errs["float32"],
+        ms=ms_k, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=None)
+
+
+def compare_beams(got, ref, got_trace, ref_trace, dtype: str, logp_tol: float):
+    """The whole-beam-decode rule (see BEAM_LOGP_TOL): ``got`` and ``ref`` are
+    the best beams' tokens (B, T) on the host, ``got_trace`` and
+    ``ref_trace`` the two decodes' traces.  Returns (ok, stats)."""
+    from img2latex_tpu_torch.ops.beam_decode import beam_divergence
+
+    T = got.shape[1]
+    div = {k: v.cpu().numpy() for k, v in beam_divergence(got_trace, ref_trace).items()}
+    first, drift, gap, step_err = div["first"], div["drift"], div["gap"], div["step_err"]
+    size = ref_trace["scores"].abs().amax(dim=(0, 2)).cpu().numpy()
+    score_tol = SCORE_ATOL[dtype] + SCORE_RTOL * size
+    # what a step adds, from two float32 scores each rounded to 2^-24 |score|
+    step_tol = logp_tol + 2.0**-22 * size
+    choice_gap = ref_trace["choice_gap"].cpu().numpy()
+    gap_tol = 2 * logp_tol
+    parted = first < T
+    differ = (got != ref).any(axis=1)
+    step_ok = ~parted | (gap <= gap_tol + 2 * drift)
+    choice_only = differ & ~parted
+    choice_ok = ~choice_only | (choice_gap <= drift + 4 * 2.0**-23 * size)
+    kth = ref_trace["gaps"][..., -1]
+    stats = {"rows": int(got.shape[0]), "rows_differ": int(differ.sum()),
+             "row_match": float(1.0 - differ.mean()),
+             "samples_parted": int(parted.sum()),
+             "first_part_step_min_median": ([int(first[parted].min()), float(np.median(first[parted]))]
+                                            if parted.any() else None),
+             "max_gap_at_part": float(gap[parted].max()) if parted.any() else None,
+             "parted_beyond_gap_tol": int((parted & (gap > gap_tol)).sum()),
+             "steps_explained": int((parted & step_ok).sum()),
+             "max_score_drift": float(drift.max()), "max_drift_over_score_tol": float((drift / score_tol).max()),
+             "max_step_err": float(step_err.max()), "max_step_err_over_tol": float((step_err / step_tol).max()),
+             "rows_differ_by_choice_only": int(choice_only.sum()),
+             "max_choice_gap_of_those": float(choice_gap[choice_only].max()) if choice_only.any() else None,
+             "median_kth_gap": float(kth[kth < 1e29].median()),
+             "ref_rows_ended": int((ref == END_ID).any(axis=1).sum()),
+             "ref_distinct_tokens": int(len(np.unique(ref))), "gap_tol": gap_tol,
+             "min_row_match": BEAM_MIN_ROW_MATCH[dtype], "min_distinct_tokens": BEAM_MIN_DISTINCT}
+    ok = bool(step_ok.all() and choice_ok.all() and (drift <= score_tol).all() and (step_err <= step_tol).all())
+    ok = ok and stats["row_match"] >= BEAM_MIN_ROW_MATCH[dtype]
+    ok = ok and 0 < stats["ref_rows_ended"] and stats["ref_distinct_tokens"] >= BEAM_MIN_DISTINCT
+    return ok, stats
+
+
+def _beam_decoders(kind: str, model, inp, dtype, cfg):
+    """(kernel beam decode, plain beam decode, kernel beam decode through a
+    given beam-step function) of one memory kind: functions of a config and
+    a trace dict, each giving (tokens, scores)."""
+    from img2latex_tpu_torch.ops import beam_decode as bd
+    from img2latex_tpu_torch.ops import decode_step as ds
+    from img2latex_tpu_torch.ops import grid_decode as gd
+
+    packed = ds.pack_decoder_weights(model.decoder, dtype)
+    if kind == "vector":
+        ctx = inp.to(dtype)
+        return (lambda c=cfg, trace=None: bd.beam_decode(packed, ctx, BEAM, c, trace=trace),
+                lambda c=cfg, trace=None: bd.beam_decode_plain(packed, ctx, BEAM, c, trace=trace),
+                lambda step, trace: bd._vector(ds.lstm_layer_step, step, packed, ctx, BEAM, cfg, trace=trace))
+    att = gd.pack_attention_weights(model.decoder, dtype)
+    mem = inp.to(dtype)
+    u = gd.grid_memory_proj(att, mem)
+    return (lambda c=cfg, trace=None: gd.grid_beam_decode(packed, att, mem, u, BEAM, c, trace=trace),
+            lambda c=cfg, trace=None: gd.grid_beam_decode_plain(packed, att, mem, u, BEAM, c, trace=trace),
+            lambda step, trace: gd._grid_beam(ds.lstm_layer_step, step, gd.attend_step, packed, att, mem, u,
+                                              BEAM, cfg, trace=trace))
+
+
+def _broken_beam_step(mode: str):
+    """The beam_step wrapper broken from step 10 on: "gather" swaps the
+    gathered h of beams 1 and 2, "parent" records each sample's parents
+    rotated, "score" adds 5e-3 to beam 0's score."""
+    from img2latex_tpu_torch.ops.beam_decode import beam_step
+
+    def step(h, w_out, b_out, scores, finished, tokens, tok_hist, par_hist, t, K, *rest):
+        beam_step(h, w_out, b_out, scores, finished, tokens, tok_hist, par_hist, t, K, *rest)
+        if t < 10:
+            return
+        h_dst = rest[3]
+        if mode == "gather":
+            h_dst[:, 1::K], h_dst[:, 2::K] = h_dst[:, 2::K].clone(), h_dst[:, 1::K].clone()
+        elif mode == "parent":
+            par_hist[t] = par_hist[t].view(-1, K).roll(1, dims=1).reshape(-1)
+        else:
+            scores[0::K] += 5e-3
+
+    return step
+
+
+def _check_beams(what: str, tokens, scores, ref, ref_scores, got_trace, ref_trace, dtype: str,
+                 logp_tol=None) -> None:
+    """Shape, finite scores, the beam rule (log-probability limit
+    ``logp_tol``, by default BEAM_LOGP_TOL's), and selection scores within
+    the score tolerance on the rows whose tokens are equal."""
+    import torch
+
+    check(tuple(tokens.shape) == (BATCH, MAX_LEN) and tokens.dtype == torch.int32, f"{what}: output")
+    check(bool(torch.isfinite(scores).all()), f"{what}: non-finite scores")
+    ok, stats = compare_beams(tokens.cpu().numpy(), ref.cpu().numpy(), got_trace, ref_trace, dtype,
+                              BEAM_LOGP_TOL[dtype] if logp_tol is None else logp_tol)
+    same = (tokens == ref).all(dim=1)
+    d = (scores - ref_scores).abs()[same]
+    tol = SCORE_ATOL[dtype] + SCORE_RTOL * ref_scores.abs()[same]
+    stats["score_max_abs_err"] = d.max().item() if d.numel() else None
+    stats["score_max_err_over_tol"] = (d / tol).max().item() if d.numel() else None
+    log(f"{what}: {json.dumps(stats)}")
+    check(ok and bool((d <= tol).all()), f"{what} disagrees with its plain version")
+
+
+def phase_beam_decode(models, card: str) -> None:
+    """Both memory kinds, K = BEAM, T = MAX_LEN, B = BATCH, length penalty
+    LENGTH_PENALTY: the whole beam decode against its plain version step by
+    step in both types; early exit on a model whose rows all end; the time of
+    each kind's decode in bf16."""
+    import dataclasses
+
+    import torch
+
+    from img2latex_tpu_torch.decoding.decode import DecodeConfig
+    from img2latex_tpu_torch.ops.beam_decode import beam_step
+
+    cfg = DecodeConfig(max_length=MAX_LEN, start_id=1, end_id=END_ID, pad_id=0, beam_size=BEAM,
+                       length_penalty=LENGTH_PENALTY)
+    for kind, (model, inp) in models.items():
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            kernel, plain, through = _beam_decoders(kind, model, inp, dtype, cfg)
+            got_trace, ref_trace = {}, {}
+            tokens, scores = kernel(trace=got_trace)
+            ref, ref_scores = plain(trace=ref_trace)
+            _check_beams(f"beam_decode {kind} {name} K={BEAM} B={BATCH} T={MAX_LEN} length_penalty={LENGTH_PENALTY}",
+                         tokens, scores, ref, ref_scores, got_trace, ref_trace, name)
+        # the rule fails a decode whose beam step is broken (bf16, the loosest limits)
+        for mode in ("gather", "parent", "score"):
+            broken_trace = {}
+            broken, _ = through(_broken_beam_step(mode), broken_trace)
+            ok, stats = compare_beams(broken.cpu().numpy(), ref.cpu().numpy(), broken_trace, ref_trace, name,
+                                      BEAM_LOGP_TOL[name])
+            log(f"beam rule against a beam step broken from step 10 on ({mode}), {kind} {name}: fails "
+                f"{not ok}; " + json.dumps({k: stats[k] for k in ("row_match", "samples_parted", "steps_explained",
+                                                                  "max_step_err_over_tol", "max_drift_over_score_tol")}))
+            check(not ok, f"the beam rule passes a decode whose beam step is broken ({mode}, {kind})")
+        ms_k = time_ms(kernel, iters=3, warmup=1)
+        ms_p = time_ms(plain, iters=2, warmup=1)
+        log(f"{kind} beam decode bf16 B={BATCH} K={BEAM} T={MAX_LEN}: kernels {ms_k:.3f} ms, plain {ms_p:.3f} ms "
+            f"[{card}]")
+        # early exit on a model whose rows all end
+        out = model.decoder.cell.out
+        saved = (out.weight.detach().clone(), out.bias.detach().clone())
+        try:
+            _make_rows_end(kind, model, inp, lambda: _decoders(kind, model, inp, torch.bfloat16)[0]())
+            with torch.no_grad():  # END a little stronger, so that every beam, not only the best, ends
+                out.bias[END_ID] += 1.0
+            kernel = _beam_decoders(kind, model, inp, torch.bfloat16, cfg)[0]
+            full, full_scores = kernel()
+            n0 = beam_step.launches
+            early, early_scores = kernel(dataclasses.replace(cfg, early_exit=True))
+            steps = beam_step.launches - n0
+            ended = (full == END_ID).any(dim=1)
+            log(f"beam early exit {kind} bf16 B={BATCH}: {int(ended.sum())}/{BATCH} best beams end, {steps} of "
+                f"{MAX_LEN} steps run; tokens equal to the full loop: {bool(torch.equal(early, full))}")
+            check(torch.equal(early, full) and torch.equal(early_scores, full_scores),
+                  f"beam early exit {kind}: differs from the full loop")
+            check(steps < MAX_LEN, f"beam early exit {kind}: ran all {steps} steps")
+        finally:
+            with torch.no_grad():
+                out.weight.copy_(saved[0])
+                out.bias.copy_(saved[1])
+
+
+def _tune_end_bias(model, ended_share, share: float = 0.5) -> float:
+    """Set END's vocab bias, by bisection within 4 of the drawn one, to where
+    the share of rows ``ended_share()`` reports is nearest ``share``.
+    Returns that share."""
+    import torch
+
+    out = model.decoder.cell.out
+    with torch.no_grad():
+        lo, hi = out.bias[END_ID].item() - 4.0, out.bias[END_ID].item() + 4.0
+        best = (float("inf"), hi, 1.0)
+        for _ in range(10):
+            mid = (lo + hi) / 2
+            out.bias[END_ID] = mid
+            got = ended_share()
+            best = min(best, (abs(got - share), mid, got))
+            lo, hi = (lo, mid) if got > share else (mid, hi)
+        out.bias[END_ID] = best[1]
+    return best[2]
+
+
+def stroke_canvases(rng, widths):
+    """White canvases with 40-200 gray strokes (rectangles of 1-24 x 1-12
+    pixels) left of each canvas's width, as a formula's glyphs: columns, and
+    canvases, differ in where the ink is."""
+    canvases = []
+    for w in widths:
+        img = np.full((IMG_H, IMG_W, 1), 255, np.uint8)
+        for _ in range(rng.integers(40, 201)):
+            x, y = rng.integers(0, w), rng.integers(0, IMG_H)
+            img[y:y + rng.integers(1, 13), x:min(x + rng.integers(1, 25), w)] = rng.integers(0, 129)
+        canvases.append(img)
+    return canvases
+
+
+def phase_grid_beam_end_to_end(dev, card, gcfg, gmodel, tokenizer, images, kernels) -> None:
+    """Grid Predictor.predict_batch with beam 5 (length penalty 2.0) and with
+    selective beam at frac 0.2 (signal "margin"), at full width in bf16, on
+    stroke canvases; the first batch is held against the plain path step by
+    step.  With random weights the memories of canvases differ little (their
+    spread across a batch is ~0.08, against ~1.5 for phase 8's random
+    memories), and the best beams use 3-6 tokens, all the same across rows,
+    so the grid head is scaled by HEAD_GAIN; and END's bias is set
+    (:func:`_tune_end_bias`) to where about half of the first batch's best
+    beams end (with the drawn bias either all or none end)."""
+    import torch
+    import torch.nn.functional as F
+
+    from img2latex_tpu_torch.decoding.decode import DecodeConfig
+    from img2latex_tpu_torch.ops.beam_decode import beam_step
+    from img2latex_tpu_torch.ops.conv1_phase import conv1_pool, conv1_pool_plain
+    from img2latex_tpu_torch.ops.decode_step import lstm_layer_step, pack_decoder_weights, vocab_argmax_step
+    from img2latex_tpu_torch.ops.grid_decode import (
+        attend_step, grid_beam_decode, grid_beam_decode_plain, grid_memory_proj, pack_attention_weights,
+    )
+    from img2latex_tpu_torch.ops.preprocess import normalize_images
+    from img2latex_tpu_torch.training.predictor import Predictor
+
+    canv = np.stack(images[:BATCH])
+    bcfg = DecodeConfig(max_length=MAX_LEN, start_id=1, end_id=END_ID, pad_id=0, beam_size=BEAM,
+                        length_penalty=LENGTH_PENALTY)
+    params = (gmodel.encoder.head.weight, gmodel.encoder.head.bias, gmodel.decoder.cell.out.bias)
+    saved = [p.detach().clone() for p in params]
+    try:
+        with torch.no_grad():
+            for p in params[:2]:
+                p.mul_(HEAD_GAIN)
+            x = normalize_images(torch.from_numpy(canv).to(dev), dtype=torch.bfloat16)
+            mem = gmodel.encode(x)
+            att = pack_attention_weights(gmodel.decoder, torch.bfloat16)
+            u = grid_memory_proj(att, mem)
+
+        def ended_share():
+            tokens, _ = grid_beam_decode(pack_decoder_weights(gmodel.decoder, torch.bfloat16), att, mem, u, BEAM,
+                                         bcfg)
+            return float((tokens == END_ID).any(dim=1).float().mean())
+
+        share = _tune_end_bias(gmodel, ended_share)
+        log(f"grid beam end to end: grid head x {HEAD_GAIN}, memory spread across the batch "
+            f"{mem.float().std(dim=0).mean().item():.3f}; END's vocab bias moved by "
+            f"{(params[2][END_ID] - saved[2][END_ID]).item():+.4f}, {share:.3f} of the first batch's best beams end")
+        pred = Predictor(gcfg, gmodel, tokenizer, batch_size=BATCH)
+        modes = {"beam": dict(beam_size=BEAM, length_penalty=LENGTH_PENALTY),
+                 "selective": dict(beam_size=BEAM, length_penalty=LENGTH_PENALTY, selective_beam_frac=SELECTIVE_FRAC)}
+        counters = (conv1_pool, attend_step, lstm_layer_step, vocab_argmax_step, beam_step)
+        for mode, kw in modes.items():
+            pred.predict_batch(images[:BATCH], return_ids=True, **kw)  # warm-up
+            torch.cuda.synchronize()
+            for k in counters:
+                k.launches = 0
+            t0 = time.perf_counter()
+            ids = pred.predict_batch(images, return_ids=True, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in counters}
+            log(f"grid predict_batch, {mode} (K={BEAM}, length_penalty={LENGTH_PENALTY}"
+                f"{', frac ' + str(SELECTIVE_FRAC) + ', signal margin' if mode == 'selective' else ''}): "
+                f"{N_IMAGES} images in {wall:.3f} s = {N_IMAGES / wall:.1f} images/s (batch {BATCH}, bf16, card {card}); "
+                f"launches {json.dumps(launches)}")
+            need = [k for k in launches if k != "vocab_argmax_step" or mode == "selective"]
+            for name in need:
+                check(launches[name] > 0, f"kernel {name} was not launched on the grid {mode} path")
+            check(len(ids) == N_IMAGES and all(len(r) <= MAX_LEN for r in ids), f"grid {mode} predict_batch output")
+            check(all(tokenizer.end_token_id not in r and all(0 <= t < VOCAB for t in r) for r in ids),
+                  f"grid {mode} trimmed ids")
+            if mode == "beam":
+                kernels["beam_step"]["launches"] = launches["beam_step"]
+                kernels[f"attend_step[rows_per_mem={BEAM}]"]["launches"] = launches["attend_step"]
+
+        # the first batch against the plain path, and the rows selective beam changes
+        dcfg = pred.decode_config(beam_size=BEAM, length_penalty=LENGTH_PENALTY)
+        toks = pred.decode_canvases(canv, dcfg=dcfg)
+        greedy = pred.decode_canvases(canv)
+        sel = pred.decode_canvases(canv, dcfg=pred.decode_config(beam_size=BEAM, length_penalty=LENGTH_PENALTY,
+                                                                 selective_beam_frac=SELECTIVE_FRAC))
+        changed = (sel != greedy).any(axis=1)
+        from_beam = (sel == toks).all(axis=1)
+        log(f"grid selective beam, one batch of {BATCH}: {int(changed.sum())} rows differ from greedy "
+            f"(<= ceil({SELECTIVE_FRAC} x {BATCH}) = {int(np.ceil(SELECTIVE_FRAC * BATCH))} rows beam-decoded); "
+            f"{int((changed & from_beam).sum())} of them equal the full beam's tokens; "
+            f"beam differs from greedy in {int((toks != greedy).any(axis=1).sum())} rows")
+        check(int(changed.sum()) <= int(np.ceil(SELECTIVE_FRAC * BATCH)), "selective beam changed too many rows")
+        enc = gmodel.encoder
+        att, packed = pred.packed_attention(), pred.packed_decoder()
+        with torch.no_grad():
+            y = conv1_pool_plain(x, enc.convs[0].weight, enc.convs[0].bias)
+            for conv in enc.convs[1:]:
+                y = F.max_pool2d(F.relu(F.conv2d(y, conv.weight.to(y.dtype), conv.bias.to(y.dtype), padding=1)), 2)
+            Bc, C, Hf, Wf = y.shape
+            mem_ref = F.relu(F.linear(y.permute(0, 3, 2, 1).reshape(Bc, Wf, Hf * C), enc.head.weight.to(y.dtype),
+                                      enc.head.bias.to(y.dtype)))
+            got_trace, ref_trace = {}, {}
+            got, got_scores = grid_beam_decode(packed, att, mem, u, BEAM, dcfg, trace=got_trace)
+            ref, ref_scores = grid_beam_decode_plain(packed, att, mem_ref, grid_memory_proj(att, mem_ref), BEAM, dcfg,
+                                                     trace=ref_trace)
+        check(np.array_equal(got.cpu().numpy(), toks), "grid beam: predict_batch's tokens differ from the beam decode "
+              "of its memory")
+        _check_beams(f"grid beam end to end vs plain path ({BATCH} images)", got, got_scores, ref, ref_scores,
+                     got_trace, ref_trace, "bfloat16", BEAM_E2E_LOGP_TOL)
+        is_end = toks == END_ID
+        check(bool((toks[np.cumsum(is_end, axis=1) - is_end > 0] == 0).all()), "grid beam: a token other than PAD follows END")
+
+        # where a beam batch's decode time goes
+        with torch.no_grad():
+            ms_dec = time_ms(lambda: grid_beam_decode(packed, att, mem, u, BEAM, dcfg), iters=3, warmup=1)
+            ms_dec_p = time_ms(lambda: grid_beam_decode_plain(packed, att, mem, u, BEAM, dcfg), iters=2, warmup=1)
+        log(f"grid beam decode bf16 B={BATCH} K={BEAM} T={MAX_LEN}: kernels {ms_dec:.3f} ms, plain {ms_dec_p:.3f} ms [{card}]")
+        log_profile(f"grid beam decode (B={BATCH}, K={BEAM}, bf16)", card,
+                    lambda: grid_beam_decode(packed, att, mem, u, BEAM, dcfg))
+    finally:
+        with torch.no_grad():
+            for p, v in zip(params, saved):
+                p.copy_(v)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     import torch.nn.functional as F
 
@@ -744,8 +1269,18 @@ def main() -> int:
                for img, w in zip(images, widths)]
     phase_grid_end_to_end(dev, card, gcfg, gmodel, tokenizer, gimages, kernels)
 
+    # ---- phase 8: beam: the beam step, shared-memory attention, whole decodes
+    phase_beam_step(dev, rng, card, kernels)
+    phase_attend_shared(dev, rng, card, kernels)
+    phase_beam_decode({"vector": (model, ctx), "grid": (gmodel, gmem)}, card)
+
+    # ---- phase 9: the grid beam and selective-beam paths end to end -----------
+    phase_grid_beam_end_to_end(dev, card, gcfg, gmodel, tokenizer, stroke_canvases(rng, widths), kernels)
+
     # ---- report --------------------------------------------------------------
-    order = ("conv1_pool", "conv1_pool[bias=0]", "lstm_layer_step", "vocab_argmax_step", "attend_step")
+    log(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s (build included)")
+    order = ("conv1_pool", "conv1_pool[bias=0]", "lstm_layer_step", "vocab_argmax_step", "attend_step",
+             "beam_step", f"attend_step[rows_per_mem={BEAM}]")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kernels[n][k] for k in keys} for n in order]}))

@@ -61,6 +61,12 @@ class InferenceConfig:
     temperature: float = 1.0
     top_k: int = 0
     top_p: float = 0.0
+    length_penalty: float = 0.0  # beam: the best beam by score / length^length_penalty
+    # Selective beam: with beam_size > 0 and 0 < frac < 1, decode greedily,
+    # then beam-decode the ceil(frac * batch) rows that are least confident
+    # by the mean of selective_signal; 0 (or >= 1) is beam over every row.
+    selective_beam_frac: float = 0.0
+    selective_signal: str = "margin"  # logp | margin | entropy | margin_logp[:alpha]
     early_exit: bool = False
 
 
@@ -174,6 +180,15 @@ def validate_config(cfg: Config) -> None:
         raise ValueError("data.max_seq_length must be >= 3 (START + token + END)")
     if cfg.inference.beam_size < 0:
         raise ValueError("inference.beam_size must be >= 0")
+    from img2latex_tpu_torch.decoding.decode import parse_signal
+
+    try:
+        parse_signal(cfg.inference.selective_signal)
+    except ValueError:
+        raise ValueError(
+            "inference.selective_signal must be logp, margin, entropy or "
+            f"margin_logp[:alpha], got {cfg.inference.selective_signal!r}"
+        ) from None
     if cfg.hardware.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(
             f"hardware.compute_dtype must be float32 or bfloat16, got {cfg.hardware.compute_dtype!r}"

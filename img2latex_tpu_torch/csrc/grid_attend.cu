@@ -1,24 +1,34 @@
 // One additive-attention step over grid memory, for all rows.
 //
-// Replaces the attention of the TPU kernel
+// Replaces the attention of the TPU kernels
 // img2latex_tpu/ops/pallas/grid_decode.py::pallas_full_grid_greedy_decode
-// (pl.pallas_call at line 373): grid_decode.py::_attend (lines 124-139),
-// which the kernel's decode loop calls every step from the previous
-// top-layer h.  The rest of that loop is greedy_decode.cu's two kernels.
+// (pl.pallas_call at line 373) and ::pallas_full_grid_beam_decode
+// (pl.pallas_call at line 561): grid_decode.py::_attend (lines 124-139),
+// which the kernels' decode loops call every step from the previous
+// top-layer h.  The rest of those loops is greedy_decode.cu's and
+// beam_step.cu's kernels.
 //
-// Per row b, with U = memory @ W_m + b_attn computed once per batch outside:
+// Rows share memories: row b attends over memory row b / rows_per_mem (1
+// for greedy; K for beam, whose K beams of a sample are adjacent rows, so
+// U and the memory are never copied K times).  Per row b, with
+// U = memory @ W_m + b_attn computed once per batch outside and
+// m = b / rows_per_mem:
 //   hw     = h_b @ W_h                   summed in float32, rounded to T
-//   e_s    = tanh(U_bs + hw)             the sum and the tanh rounded to T
+//   e_s    = tanh(U_ms + hw)             the sum and the tanh rounded to T
 //   score_s = sum_a e_sa v_a             each product rounded to T, summed in float32
 //   w      = softmax_s(score)            float32, rounded to T
-//   ctx_b  = sum_s w_s m_bs              each product rounded to T, summed in float32
+//   ctx_b  = sum_s w_s mem_ms            each product rounded to T, summed in float32
 // The rounding points are _attend's (where it casts to the compute type), so
 // the kernel and its plain version round alike; in float32 they are exact.
 //
 // Bound: every step reads all of U and the memory, (A + E) S 2 bytes a row
 // in bf16: at B = 512, S = 100, E = 256, A = 384 that is 65.5 MB a step, more
 // than the 50 MB L2, so it is bound by device memory: about 19.6 us a step at
-// 3.35 TB/s.  h @ W_h is only 2 B H A = 0.15 GFLOP a step.
+// 3.35 TB/s.  h @ W_h is only 2 B H A = 0.15 GFLOP a step.  With K beams a
+// sample (rows_per_mem = K) the bound stays that of the memory, since each
+// byte is needed once a step; this version gives each beam its own block,
+// so a step asks for K times the memory's bytes, the K blocks of a sample
+// being adjacent and finding its lines in L2 when they run close together.
 //
 // Two kernels, launched together by i2l_attend_step:
 //   attend_hw_kernel   hw (B, A) = h @ W_h, a register-tiled product (16 rows x
@@ -156,7 +166,7 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads, 4) attend_kernel(
     const T* __restrict__ hw, const T* __restrict__ v, const T* __restrict__ u,
-    const T* __restrict__ mem, T* __restrict__ ctx, int S, int E, int A) {
+    const T* __restrict__ mem, T* __restrict__ ctx, int S, int E, int A, int rows_per_mem) {
   constexpr int kUnroll = 2;
   extern __shared__ __align__(16) float smem[];
   float* sc = smem;
@@ -169,7 +179,8 @@ __global__ void __launch_bounds__(kThreads, 4) attend_kernel(
   __syncthreads();
 
   // scores
-  const T* u_b = u + (size_t)b * S * A;
+  const int mb = b / rows_per_mem;  // the memory row this row attends over
+  const T* u_b = u + (size_t)mb * S * A;
   for (int c0 = 0; c0 < A; c0 += 32 * VEC) {
     const int a0 = c0 + lane * VEC;
     const bool on = a0 < A;  // A % VEC == 0, so a lane's VEC columns are all in or all out
@@ -219,7 +230,7 @@ __global__ void __launch_bounds__(kThreads, 4) attend_kernel(
   __syncthreads();
 
   // context: each warp sums its slots into its own row of part
-  const T* m_b = mem + (size_t)b * S * E;
+  const T* m_b = mem + (size_t)mb * S * E;
   for (int c0 = 0; c0 < E; c0 += 32 * VEC) {
     const int e0 = c0 + lane * VEC;
     const bool on = e0 < E;
@@ -261,7 +272,7 @@ size_t attend_smem_bytes(int S, int E) {
 
 template <typename T, int VEC>
 cudaError_t launch_attend(const void* hw, const void* v, const void* u, const void* mem, void* ctx,
-                          int B, int S, int E, int A, cudaStream_t stream) {
+                          int B, int S, int E, int A, int rows_per_mem, cudaStream_t stream) {
   const size_t smem = attend_smem_bytes(S, E);
   auto kernel = attend_kernel<T, VEC>;
   if (smem > 48 * 1024) {
@@ -271,13 +282,14 @@ cudaError_t launch_attend(const void* hw, const void* v, const void* u, const vo
   }
   kernel<<<B, kThreads, smem, stream>>>(static_cast<const T*>(hw), static_cast<const T*>(v),
                                         static_cast<const T*>(u), static_cast<const T*>(mem),
-                                        static_cast<T*>(ctx), S, E, A);
+                                        static_cast<T*>(ctx), S, E, A, rows_per_mem);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* h, const void* w_h, const void* v, const void* u, const void* mem,
-                   void* hw, void* ctx, int B, int S, int E, int H, int A, cudaStream_t stream) {
+                   void* hw, void* ctx, int B, int S, int E, int H, int A, int rows_per_mem,
+                   cudaStream_t stream) {
   dim3 grid((A + P_BN - 1) / P_BN, (B + P_BM - 1) / P_BM);
   attend_hw_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(w_h), static_cast<T*>(hw), B, H, A);
@@ -289,24 +301,27 @@ cudaError_t launch(const void* h, const void* w_h, const void* v, const void* u,
   const bool vec = A % kVec == 0 && E % kVec == 0 &&
                    reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(mem) % 16 == 0;
-  return vec ? launch_attend<T, kVec>(hw, v, u, mem, ctx, B, S, E, A, stream)
-             : launch_attend<T, 1>(hw, v, u, mem, ctx, B, S, E, A, stream);
+  return vec ? launch_attend<T, kVec>(hw, v, u, mem, ctx, B, S, E, A, rows_per_mem, stream)
+             : launch_attend<T, 1>(hw, v, u, mem, ctx, B, S, E, A, rows_per_mem, stream);
 }
 
 }  // namespace
 
-// One attention step.  h (B, H); w_h (H, A); v (A,); u (B, S, A); mem
-// (B, S, E); hw (B, A) scratch; ctx (B, E) receives the context.  All in
-// the compute type (dtype 0 float32, 1 bfloat16), contiguous.
+// One attention step for B rows.  h (B, H); w_h (H, A); v (A,); u
+// (B / rows_per_mem, S, A); mem (B / rows_per_mem, S, E); hw (B, A)
+// scratch; ctx (B, E) receives the context.  All in the compute type
+// (dtype 0 float32, 1 bfloat16), contiguous; B a multiple of rows_per_mem.
 extern "C" int i2l_attend_step(const void* h, const void* w_h, const void* v, const void* u,
                                const void* mem, void* hw, void* ctx, int B, int S, int E, int H,
-                               int A, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || E <= 0 || H <= 0 || A <= 0 || (B + P_BM - 1) / P_BM > 65535 ||
+                               int A, int rows_per_mem, int dtype, void* stream) {
+  if (B <= 0 || S <= 0 || E <= 0 || H <= 0 || A <= 0 || rows_per_mem <= 0 ||
+      B % rows_per_mem != 0 || (B + P_BM - 1) / P_BM > 65535 ||
       attend_smem_bytes(S, E) > 227 * 1024)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == i2l::kF32) return (int)launch<float>(h, w_h, v, u, mem, hw, ctx, B, S, E, H, A, s);
+  if (dtype == i2l::kF32)
+    return (int)launch<float>(h, w_h, v, u, mem, hw, ctx, B, S, E, H, A, rows_per_mem, s);
   if (dtype == i2l::kBF16)
-    return (int)launch<__nv_bfloat16>(h, w_h, v, u, mem, hw, ctx, B, S, E, H, A, s);
+    return (int)launch<__nv_bfloat16>(h, w_h, v, u, mem, hw, ctx, B, S, E, H, A, rows_per_mem, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -58,15 +58,25 @@ def array_to_canvas_u8(
     return res[:, :, None] if res.ndim == 2 else res
 
 
+def _to_mode(img, channels: int):
+    """A PIL image converted to "L" (one channel) or "RGB" (three)."""
+    mode = "L" if channels == 1 else "RGB"
+    return img if img.mode == mode else img.convert(mode)
+
+
 def load_image_u8(path: str, target_height: int, target_width: int, channels: int,
                   pad_value: int = 255) -> np.ndarray:
-    """Read an image file and fit it to the canvas, via Pillow."""
+    """Read an image file and fit it to the canvas, via Pillow.  A missing
+    file raises ``FileNotFoundError``; any other error in reading it gives a
+    zero canvas, as the JAX package's ``load_image_u8`` does."""
     Image = _pil()
-    img = Image.open(path)
-    mode = "L" if channels == 1 else "RGB"
-    if img.mode != mode:
-        img = img.convert(mode)
-    return array_to_canvas_u8(np.asarray(img, np.uint8), target_height, target_width, pad_value)
+    try:
+        img = _to_mode(Image.open(path), channels)
+        return array_to_canvas_u8(np.asarray(img, np.uint8), target_height, target_width, pad_value)
+    except FileNotFoundError:
+        raise
+    except Exception:
+        return np.zeros((target_height, target_width, channels), dtype=np.uint8)
 
 
 def rgb_to_gray_u8(arr: np.ndarray) -> np.ndarray:
@@ -79,11 +89,14 @@ def rgb_to_gray_u8(arr: np.ndarray) -> np.ndarray:
 def prepare_image_u8(
     image, target_height: int, target_width: int, channels: int, pad_value: int = 255
 ) -> np.ndarray:
-    """A path string or an array (uint8 or float in [0, 1] / [-1, 1]; HW, HWC
-    or CHW; 1 or 3 channels) -> uint8 (H, W, C) canvas."""
+    """A path string, a PIL image (converted to "L" or "RGB" first) or an
+    array (uint8 or float in [0, 1] / [-1, 1]; HW, HWC or CHW; 1 or 3
+    channels) -> uint8 (H, W, C) canvas."""
     h, w, c = target_height, target_width, channels
     if isinstance(image, str):
         return load_image_u8(image, h, w, c, pad_value)
+    if hasattr(image, "getbands"):  # a PIL image, known without importing Pillow
+        image = _to_mode(image, c)
     arr = np.asarray(image)
     if arr.dtype != np.uint8:
         a = arr.astype(np.float32)

@@ -1,7 +1,9 @@
-"""Greedy decoding: the eager oracle and host-side post-processing.
+"""Greedy and beam decoding: the eager oracles, the beam search's pieces and
+host-side post-processing.
 
 Counterpart of the greedy branch of ``img2latex_tpu/decoding/decode.py::greedy_sample_decode``,
-of ``signal_alpha`` and of ``trim_host``.  Greedy is the argmax of the
+of ``signal_alpha``, ``select_uncertain``, ``topk_iterative``,
+``beam_decode``, ``backtrack_and_select`` and ``trim_host``.  Greedy is the argmax of the
 logits (the lowest index wins ties); a row that emitted END emits PAD from
 the next step on, and the token fed back is the one emitted.
 :func:`greedy_decode_eager` steps the model one token at a time in plain
@@ -18,6 +20,18 @@ float32 logits of the step (:func:`step_signal`):
 * ``"margin"``: top-1 minus top-2 logit (the log-probability gap);
 * ``"entropy"``: negative entropy of the step's distribution;
 * ``"margin_logp[:alpha]"``: margin + alpha * logp (alpha 1 by default).
+
+Beam search (:func:`beam_decode`) keeps K beams a sample, rows sample-major
+(row ``b * K + k`` is beam k of sample b).  Each step adds the row's
+log-softmax to its beam's score and keeps the K best of the K * V
+candidates of each sample, the lowest flat index ``k * V + v`` winning ties
+(:func:`topk_iterative`).  A beam that emitted END emits PAD at +0 and
+nothing else (every other candidate gets -1e30), so its score is frozen.
+At t = 0 only beam 0 is live (the others start at -1e30), so the first step
+picks K distinct tokens.  The (token, parent) history is backtracked at the
+end and the best beam chosen, by ``score / length^length_penalty`` when the
+penalty is above 0 (:func:`backtrack_and_select`).  The kernels of
+:mod:`img2latex_tpu_torch.ops.beam_decode` are held against it.
 """
 
 from __future__ import annotations
@@ -64,16 +78,24 @@ def parse_signal(signal: str) -> Tuple[str, float]:
 
 @dataclass(frozen=True)
 class DecodeConfig:
-    """Greedy decode settings (beam and sampling come in later slices).
+    """Greedy and beam decode settings (sampling comes in a later slice).
 
-    ``early_exit``: stop once every row has emitted END; the output is the
-    same as the full loop's.  ``selective_signal``: the per-step confidence
-    that ``return_scores`` sums (module docstring)."""
+    ``beam_size``: 0 for greedy, else the beam width K.  ``length_penalty``:
+    the best beam is the one of largest ``score / length^length_penalty``
+    (the plain score at 0).  ``selective_beam_frac``: with beam and
+    0 < frac < 1, only the least confident rows of a greedy decode are
+    beam-decoded (0 or >= 1: every row).  ``early_exit``: stop once every
+    row (or beam) has emitted END; the output is the same as the full
+    loop's.  ``selective_signal``: the per-step confidence that
+    ``return_scores`` sums (module docstring)."""
 
     max_length: int = 141
     start_id: int = 1
     end_id: int = 2
     pad_id: int = 0
+    beam_size: int = 0
+    length_penalty: float = 0.0
+    selective_beam_frac: float = 0.0
     early_exit: bool = False
     selective_signal: str = "margin"
 
@@ -123,6 +145,101 @@ def greedy_decode_eager(step_fn: StepFn, carry0, batch_size: int, cfg: DecodeCon
         finished = finished | (tokens == cfg.end_id)
         out[:, t] = tokens
     return (out, score) if return_scores else out
+
+
+def select_uncertain(tokens: torch.Tensor, scores: torch.Tensor, k: int,
+                     pad_id: int) -> torch.Tensor:
+    """Indices ((k,) int64) of the k rows of least mean signal (the summed
+    score over the row's non-PAD length), least first; among equal means
+    the lower row index comes first, as ``lax.top_k`` orders them."""
+    lengths = (tokens != pad_id).sum(dim=-1).float()
+    mean = scores.float() / lengths.clamp_min(1.0)
+    return topk_iterative(-mean, k)[1].long()
+
+
+def topk_iterative(flat: torch.Tensor, k: int, neg: float = float("-inf")):
+    """The k largest values of the last axis and their indices, by k passes
+    of (argmax, mask the winner with ``neg``): among equal values the lowest
+    index wins, as in ``lax.top_k`` (``torch.topk`` leaves the order of ties
+    unspecified).  Returns (values, int64 indices), each (..., k)."""
+    vals, idxs = [], []
+    cur = flat
+    for _ in range(k):
+        i = torch.argmax(cur, dim=-1)  # the first maximum
+        vals.append(cur.gather(-1, i[..., None])[..., 0])
+        idxs.append(i)
+        cur = cur.scatter(-1, i[..., None], neg)
+    return torch.stack(vals, dim=-1), torch.stack(idxs, dim=-1)
+
+
+def backtrack_and_select(tok_seq: torch.Tensor, beam_seq: torch.Tensor, final_scores: torch.Tensor,
+                         cfg: DecodeConfig, return_all: bool = False):
+    """(T, B, K) token and parent histories and (B, K) final scores -> the
+    best beam's tokens (B, T) int32 and its selection score (B,) float32:
+    ``score / max(length, 1)^length_penalty`` (length counts the non-PAD
+    tokens, END included) when the penalty is above 0, else the score.
+    Among equal selection scores the lowest beam wins.  With ``return_all``
+    the (B, K) selection scores of every beam follow, and the (B, K) factors
+    that made them from the scores (``length^-length_penalty``, or 1)."""
+    T, B, K = tok_seq.shape
+    beam = torch.arange(K, device=tok_seq.device).expand(B, K)
+    rev = []
+    for t in range(T - 1, -1, -1):
+        rev.append(tok_seq[t].gather(1, beam))
+        beam = beam_seq[t].long().gather(1, beam)
+    sequences = torch.stack(rev[::-1], dim=-1).to(torch.int32)  # (B, K, T)
+    norm = final_scores.float()
+    scale = torch.ones_like(norm)
+    if cfg.length_penalty > 0:
+        lengths = (sequences != cfg.pad_id).sum(dim=-1).float()
+        scale = lengths.clamp_min(1.0) ** -cfg.length_penalty
+        norm = norm / lengths.clamp_min(1.0) ** cfg.length_penalty
+    best = torch.argmax(norm, dim=-1)
+    tokens = sequences.gather(1, best[:, None, None].expand(B, 1, T))[:, 0]
+    res = (tokens, norm.gather(1, best[:, None])[:, 0])
+    return res + (norm, scale) if return_all else res
+
+
+@torch.no_grad()
+def beam_decode(step_fn: StepFn, carry0, batch_size: int, beam_size: int, cfg: DecodeConfig):
+    """Eager beam search over ``batch_size * beam_size`` sample-major rows
+    (module docstring): ``step_fn`` works on all rows (the caller repeats
+    each sample's memory K times), ``carry0`` is their (h, c), each
+    (L, B * K, H).  Returns the best beam's tokens (B, max_length) int32 and
+    its selection score (B,) float32 (:func:`backtrack_and_select`).  With
+    ``cfg.early_exit`` the loop stops once every beam has ended; the steps
+    not run hold PAD tokens and identity parents, which is what the full
+    loop records once every beam has ended (frozen scores stay in order)."""
+    B, K, T = batch_size, beam_size, cfg.max_length
+    device = carry0[0].device
+    tokens = torch.full((B * K,), cfg.start_id, dtype=torch.int32, device=device)
+    scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=device)
+    scores[:, 0] = 0.0
+    fin = torch.zeros((B, K), dtype=torch.bool, device=device)
+    tok_seq = torch.full((T, B, K), cfg.pad_id, dtype=torch.int32, device=device)
+    beam_seq = torch.arange(K, dtype=torch.int32, device=device).expand(T, B, K).clone()
+    base = (torch.arange(B, device=device) * K)[:, None]
+    carry = carry0
+    for t in range(T):
+        if cfg.early_exit and bool(fin.all()):
+            break
+        logits, carry = step_fn(tokens, carry)
+        V = logits.shape[-1]
+        logp = torch.log_softmax(logits.float(), dim=-1).view(B, K, V)
+        pad_onehot = torch.full((V,), NEG_INF, device=device)
+        pad_onehot[cfg.pad_id] = 0.0
+        logp = torch.where(fin[..., None], pad_onehot, logp)
+        total = (scores[..., None] + logp).view(B, K * V)
+        scores, flat_idx = topk_iterative(total, K)
+        parent = flat_idx // V
+        tok = (flat_idx % V).to(torch.int32)
+        rows = (parent + base).view(-1)
+        carry = tuple(x.index_select(-2, rows) for x in carry)  # (L, B K, H) leaves
+        fin = fin.gather(1, parent) | (tok == cfg.end_id)
+        tokens = tok.view(-1)
+        tok_seq[t] = tok
+        beam_seq[t] = parent.to(torch.int32)
+    return backtrack_and_select(tok_seq, beam_seq, scores, cfg)
 
 
 def trim_host(tokens: np.ndarray, end_id: int, pad_id: int,

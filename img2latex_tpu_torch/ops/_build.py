@@ -45,8 +45,11 @@ SIGNATURES = {
     # h, w_out, b_out, tokens, finished, out, score, signal, alpha, t, T, B, H, Vp, end_id,
     # pad_id, dtype, stream
     "i2l_vocab_argmax_step": [P, P, P, P, P, P, P, I, F, I, I, I, I, I, I, I, I, P],
-    # h, w_h, v, u, mem, hw, ctx, B, S, E, H, A, dtype, stream
-    "i2l_attend_step": [P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    # h, w_h, v, u, mem, hw, ctx, B, S, E, H, A, rows_per_mem, dtype, stream
+    "i2l_attend_step": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    # h, w_out, b_out, scores, finished, tokens, tok_hist, par_hist, h_src, h_dst, c_src, c_dst,
+    # L, B, K, H, Vp, t, end_id, pad_id, dtype, stream
+    "i2l_beam_step": [P] * 12 + [I] * 9 + [P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,9 +1,11 @@
-"""Whole greedy decode of the LSTM decoder over grid memory (S > 1).
+"""Whole greedy and beam decodes of the LSTM decoder over grid memory (S > 1).
 
-Replaces the TPU kernel ``img2latex_tpu/ops/pallas/grid_decode.py::pallas_full_grid_greedy_decode``
+Replaces the TPU kernels ``img2latex_tpu/ops/pallas/grid_decode.py::pallas_full_grid_greedy_decode``
 (``pl.pallas_call`` at line 373), ``early_exit`` and the per-row scores
-included.  That kernel runs the vector decode loop with a context that
-attends, every step, from the previous top-layer h over the memory
+included, and ``::pallas_full_grid_beam_decode`` (``pl.pallas_call`` at
+line 561, the kernel ``_grid_beam_kernel`` at line 391).  The greedy kernel
+runs the vector decode loop with a context that attends, every step, from
+the previous top-layer h over the memory
 (B, S, E) and its projection ``U = memory @ W_m + b`` (B, S, A), both held
 in VMEM for the whole decode.  Here the loop is
 :func:`img2latex_tpu_torch.ops.decode_step._decode` (the LSTM and vocab
@@ -17,7 +19,15 @@ they are 65.5 MB in bf16, more than the 50 MB L2.
 * :func:`grid_memory_proj` - U once per batch, a plain product outside the
   kernel, as the JAX package leaves it to XLA (``grid_decode.py:100-120``);
 * :func:`attend_step` / :func:`attend_step_plain` - one attention step;
-* :func:`grid_greedy_decode` / :func:`grid_greedy_decode_plain`.
+* :func:`grid_greedy_decode` / :func:`grid_greedy_decode_plain`;
+* :func:`grid_beam_decode` / :func:`grid_beam_decode_plain` - the beam loop
+  of :mod:`img2latex_tpu_torch.ops.beam_decode` with the context of each
+  beam from :func:`attend_step` on its parent-gathered top-layer h, with
+  ``rows_per_mem = K``: the K beams of a sample (adjacent rows) attend over
+  that sample's row of U and the memory, which stay (B, S, .) and are never
+  copied K times, as in the TPU kernel.  The TPU kernel's tile choice
+  (``_auto_tile_beam`` and the VMEM budget, lines 488-519) has no
+  counterpart here: the card's kernels take the whole batch at once.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors.
@@ -25,11 +35,13 @@ PyTorch version for CPU tensors.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
+from img2latex_tpu_torch.decoding.decode import DecodeConfig
 from img2latex_tpu_torch.ops import _build
+from img2latex_tpu_torch.ops.beam_decode import _beam, beam_step, beam_step_plain
 from img2latex_tpu_torch.ops.decode_step import (
     _DTYPES,
     _decode,
@@ -67,27 +79,31 @@ def grid_memory_proj(att: Dict[str, Any], memory: torch.Tensor) -> torch.Tensor:
     return u.to(dtype).contiguous()
 
 
-def attend_step_plain(h, w_h, v, u, mem, ctx, hw=None) -> torch.Tensor:
+def attend_step_plain(h, w_h, v, u, mem, ctx, hw=None, rows_per_mem: int = 1) -> torch.Tensor:
     """Plain version of :func:`attend_step` (same arguments, same effect);
     ``hw`` is unused."""
     dtype = u.dtype
-    hw_ = (h.float() @ w_h.float()).to(dtype)
-    energy = torch.tanh(u + hw_[:, None, :])
+    M, S, A = u.shape
+    hw_ = (h.float() @ w_h.float()).to(dtype).view(M, rows_per_mem, 1, A)
+    energy = torch.tanh(u[:, None] + hw_)  # (M, rows_per_mem, S, A)
     scores = (energy * v).float().sum(-1)
     w = torch.softmax(scores, dim=-1).to(dtype)
-    ctx.copy_((w[:, :, None] * mem).float().sum(1).to(dtype))
+    ctx.copy_((w[..., None] * mem[:, None]).float().sum(2).to(dtype).view(ctx.shape))
     return ctx
 
 
-def attend_step(h, w_h, v, u, mem, ctx, hw=None) -> torch.Tensor:
+def attend_step(h, w_h, v, u, mem, ctx, hw=None, rows_per_mem: int = 1) -> torch.Tensor:
     """One additive-attention step for all rows, into ``ctx`` (B, E):
     ``softmax_s(sum_a tanh(U + h @ W_h) v) . memory``, rounded to the
     compute type where ``grid_decode.py::_attend`` rounds (hw, the energy,
-    the products, the weights).  h (B, H), w_h (H, A), v (A,), u (B, S, A),
-    mem (B, S, E), all of one compute type; ``hw`` (B, A) is scratch for
-    ``h @ W_h``, allocated here when not given.  Returns ``ctx``."""
+    the products, the weights).  h (B, H), w_h (H, A), v (A,), all of one
+    compute type; row b attends over row ``b // rows_per_mem`` of u
+    (B / rows_per_mem, S, A) and mem (B / rows_per_mem, S, E), so the K
+    beams of a sample share its memory with ``rows_per_mem = K``.  ``hw``
+    (B, A) is scratch for ``h @ W_h``, allocated here when not given.
+    Returns ``ctx``."""
     if h.device.type == "cpu":
-        return attend_step_plain(h, w_h, v, u, mem, ctx)
+        return attend_step_plain(h, w_h, v, u, mem, ctx, rows_per_mem=rows_per_mem)
     if h.device.type != "cuda":
         raise ValueError(f"attend_step: unsupported device {h.device}")
     B, H = h.shape
@@ -96,9 +112,12 @@ def attend_step(h, w_h, v, u, mem, ctx, hw=None) -> torch.Tensor:
     dtype = h.dtype
     if dtype not in _DTYPES:
         raise TypeError(f"attend_step: dtype {dtype} is not float32 or bfloat16")
+    if rows_per_mem < 1 or B % rows_per_mem:
+        raise ValueError(f"attend_step: {B} rows are not a multiple of rows_per_mem {rows_per_mem}")
+    M = B // rows_per_mem
     if hw is None:
         hw = torch.empty((B, A), dtype=dtype, device=h.device)
-    shapes = {"w_h": (w_h, (H, A)), "v": (v, (A,)), "u": (u, (B, S, A)), "mem": (mem, (B, S, E)),
+    shapes = {"w_h": (w_h, (H, A)), "v": (v, (A,)), "u": (u, (M, S, A)), "mem": (mem, (M, S, E)),
               "ctx": (ctx, (B, E)), "hw": (hw, (B, A))}
     for name, (x, shape) in shapes.items():
         if tuple(x.shape) != shape:
@@ -108,7 +127,7 @@ def attend_step(h, w_h, v, u, mem, ctx, hw=None) -> torch.Tensor:
             raise ValueError("attend_step: operands must be contiguous, of one dtype, on one device")
     err = _build.lib().i2l_attend_step(
         h.data_ptr(), w_h.data_ptr(), v.data_ptr(), u.data_ptr(), mem.data_ptr(), hw.data_ptr(),
-        ctx.data_ptr(), B, S, E, H, A, _DTYPES[dtype],
+        ctx.data_ptr(), B, S, E, H, A, rows_per_mem, _DTYPES[dtype],
         torch.cuda.current_stream(h.device).cuda_stream,
     )
     _build.check(err, "i2l_attend_step")
@@ -156,3 +175,39 @@ def grid_greedy_decode_plain(packed: Dict[str, Any], att: Dict[str, Any], memory
     return _grid(lstm_layer_step_plain, vocab_argmax_step_plain, attend_step_plain, packed, att,
                  memory, u, max_length, start_id, end_id, pad_id, early_exit, return_scores,
                  signal, return_margins)
+
+
+def _grid_beam(layer_step, step_fn, attend, packed, att, memory, u, K, cfg, **kwargs):
+    dtype = packed["emb"].dtype
+    B, _, E = memory.shape
+    mem = memory.to(dtype).contiguous()
+    u = u.to(dtype).contiguous()
+    ctx = torch.empty((B * K, E), dtype=dtype, device=mem.device)
+    hw = torch.empty((B * K, att["attn_dim"]), dtype=dtype, device=mem.device)
+
+    def ctx_of(h_top):
+        return attend(h_top, att["w_h"], att["v"], u, mem, ctx, hw, rows_per_mem=K)
+
+    return _beam(layer_step, step_fn, packed, ctx_of, B, K, mem.device, cfg, **kwargs)
+
+
+def grid_beam_decode(packed: Dict[str, Any], att: Dict[str, Any], memory: torch.Tensor,
+                     u: torch.Tensor, beam_size: int, cfg: DecodeConfig,
+                     trace: Optional[Dict[str, torch.Tensor]] = None):
+    """Beam search of width ``beam_size`` over grid memory: memory (B, S, E)
+    and its projection ``u`` (:func:`grid_memory_proj`) -> the best beam's
+    tokens (B, cfg.max_length) int32 (END kept, PAD after it) and its
+    selection score (B,) float32, with ``cfg``'s ids, ``length_penalty``
+    and ``early_exit``; ``trace`` as in ``ops/beam_decode.py::_beam``.  CUDA
+    tensors run the kernels; CPU tensors run their plain versions."""
+    return _grid_beam(lstm_layer_step, beam_step, attend_step, packed, att, memory, u, beam_size,
+                      cfg, trace=trace)
+
+
+def grid_beam_decode_plain(packed: Dict[str, Any], att: Dict[str, Any], memory: torch.Tensor,
+                           u: torch.Tensor, beam_size: int, cfg: DecodeConfig,
+                           trace: Optional[Dict[str, torch.Tensor]] = None):
+    """:func:`grid_beam_decode` through the plain versions on any device;
+    its ``trace`` also receives the gaps of every step."""
+    return _grid_beam(lstm_layer_step_plain, beam_step_plain, attend_step_plain, packed, att,
+                      memory, u, beam_size, cfg, trace=trace)

@@ -1,4 +1,4 @@
-"""Batched greedy inference (counterpart of ``img2latex_tpu/training/predictor.py::Predictor``).
+"""Batched greedy and beam inference (counterpart of ``img2latex_tpu/training/predictor.py::Predictor``).
 
 The path: images -> uint8 (H, W, C) canvases on the host -> fixed-size
 batches (the short last batch padded with zero canvases and cropped after)
@@ -11,8 +11,17 @@ step.  With attention off the context is ``memory[:, 0, :]`` whatever the
 memory kind, as in the JAX package, so that takes the vector decode.
 ``inference.early_exit`` stops a batch's decode once every row has ended.
 
-Only greedy decoding is ported; asking for beam search or sampling raises
-``NotImplementedError``.  ``from_checkpoint`` is not
+With ``beam_size`` K > 0 the batch is beam-decoded instead (the vector or
+grid beam decode of the same kernels plus the beam-step kernel), and the
+best beam's tokens are kept (by ``score / length^length_penalty`` when the
+penalty is above 0).  With ``0 < selective_beam_frac < 1`` the batch is
+decoded greedily with per-row scores of ``selective_signal``, and only the
+``ceil(frac * batch)`` rows of least mean score are beam-decoded and their
+tokens put in place of the greedy ones; the zero canvases that pad a short
+last batch compete for those rows, as in the JAX package.  Sampling
+(``top_k`` or ``top_p`` above 0 at a positive temperature) is not ported
+yet and raises ``NotImplementedError`` (with beam on, the JAX package's
+beam ignores those settings, and so does this one).  ``from_checkpoint`` is not
 ported yet (the JAX package's checkpoints are Orbax directories); load
 weights with :func:`img2latex_tpu_torch.bridge.load_flax_params` or
 ``model.load_state_dict``.
@@ -20,6 +29,7 @@ weights with :func:`img2latex_tpu_torch.bridge.load_flax_params` or
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -28,10 +38,12 @@ import torch
 from img2latex_tpu_torch.config import Config
 from img2latex_tpu_torch.data.tokenizer import LaTeXTokenizer
 from img2latex_tpu_torch.data.transforms import prepare_image_u8
-from img2latex_tpu_torch.decoding.decode import DecodeConfig, trim_host
+from img2latex_tpu_torch.decoding.decode import DecodeConfig, select_uncertain, trim_host
 from img2latex_tpu_torch.models.seq2seq import Seq2SeqModel
+from img2latex_tpu_torch.ops.beam_decode import beam_decode
 from img2latex_tpu_torch.ops.decode_step import greedy_decode, pack_decoder_weights
 from img2latex_tpu_torch.ops.grid_decode import (
+    grid_beam_decode,
     grid_greedy_decode,
     grid_memory_proj,
     pack_attention_weights,
@@ -65,43 +77,94 @@ class Predictor:
             self._packed_att = pack_attention_weights(self.model.decoder, self.dtype)
         return self._packed_att
 
-    def _check_greedy(self) -> None:
+    def decode_config(self, beam_size: Optional[int] = None, max_length: Optional[int] = None,
+                      temperature: Optional[float] = None, top_k: Optional[int] = None,
+                      top_p: Optional[float] = None, length_penalty: Optional[float] = None,
+                      early_exit: Optional[bool] = None,
+                      selective_beam_frac: Optional[float] = None) -> DecodeConfig:
+        """The decode settings of ``cfg.inference`` with the given overrides.
+        Raises ``NotImplementedError`` where they would sample (not ported)."""
         icfg = self.cfg.inference
-        sampling = icfg.temperature > 0 and (icfg.top_k > 0 or icfg.top_p > 0.0)
-        if icfg.beam_size > 0 or sampling:
-            raise NotImplementedError(
-                "only greedy decoding is ported (beam_size=0, top_k=0, top_p=0)"
-            )
+
+        def pick(value, default):
+            return default if value is None else value
+
+        beam = int(pick(beam_size, icfg.beam_size))
+        temp = pick(temperature, icfg.temperature)
+        sampling = temp > 0 and (pick(top_k, icfg.top_k) > 0 or pick(top_p, icfg.top_p) > 0.0)
+        if sampling and beam == 0:
+            raise NotImplementedError("sampling (top_k or top_p > 0) is not ported yet")
+        tok = self.tokenizer
+        frac = float(pick(selective_beam_frac, icfg.selective_beam_frac))
+        return DecodeConfig(
+            max_length=int(pick(max_length, icfg.max_length)),
+            start_id=tok.start_token_id, end_id=tok.end_token_id, pad_id=tok.pad_token_id,
+            beam_size=beam,
+            length_penalty=float(pick(length_penalty, icfg.length_penalty)),
+            # the JAX package's beam runs over every row when it would sample
+            selective_beam_frac=0.0 if sampling else frac,
+            early_exit=bool(pick(early_exit, icfg.early_exit)),
+            selective_signal=icfg.selective_signal,
+        )
 
     @torch.no_grad()
-    def decode_canvases(self, canvases_u8: np.ndarray, max_length: Optional[int] = None) -> np.ndarray:
-        """uint8 (B, H, W, C) canvases -> token ids (B, max_length) int32 on the host."""
-        tok = self.tokenizer
-        dcfg = DecodeConfig(
-            max_length=max_length if max_length is not None else self.cfg.inference.max_length,
-            start_id=tok.start_token_id, end_id=tok.end_token_id, pad_id=tok.pad_token_id,
-            early_exit=bool(self.cfg.inference.early_exit),
-        )
+    def decode_canvases(self, canvases_u8: np.ndarray, dcfg: Optional[DecodeConfig] = None) -> np.ndarray:
+        """uint8 (B, H, W, C) canvases -> token ids (B, dcfg.max_length) int32
+        on the host, with ``dcfg`` (default :meth:`decode_config`)."""
+        if dcfg is None:
+            dcfg = self.decode_config()
         icfg = self.cfg.preprocessing
         x = torch.from_numpy(np.ascontiguousarray(canvases_u8)).to(self.device)
         x = normalize_images(x, icfg.normalization_mean, icfg.normalization_std, self.dtype)
         memory = self.model.encode(x)
+        packed = self.packed_decoder()
         args = (dcfg.max_length, dcfg.start_id, dcfg.end_id, dcfg.pad_id)
         if self.model.decoder.cell.attends(memory):
             att = self.packed_attention()
             u = grid_memory_proj(att, memory)  # once per batch
-            tokens = grid_greedy_decode(self.packed_decoder(), att, memory, u, *args,
-                                        early_exit=dcfg.early_exit)
+
+            def greedy(**kw):
+                return grid_greedy_decode(packed, att, memory, u, *args, early_exit=dcfg.early_exit, **kw)
+
+            def beam(idx=None):
+                mem, uu = (memory, u) if idx is None else (memory[idx], u[idx])
+                return grid_beam_decode(packed, att, mem, uu, dcfg.beam_size, dcfg)[0]
         else:
-            tokens = greedy_decode(self.packed_decoder(), memory[:, 0, :], *args,
-                                   early_exit=dcfg.early_exit)
+            ctx = memory[:, 0, :]
+
+            def greedy(**kw):
+                return greedy_decode(packed, ctx, *args, early_exit=dcfg.early_exit, **kw)
+
+            def beam(idx=None):
+                return beam_decode(packed, ctx if idx is None else ctx[idx], dcfg.beam_size, dcfg)[0]
+
+        frac = dcfg.selective_beam_frac
+        if dcfg.beam_size == 0:
+            tokens = greedy()
+        elif 0.0 < frac < 1.0:
+            # greedy over every row, beam over the least confident ones
+            tokens, scores = greedy(return_scores=True, signal=dcfg.selective_signal)
+            k = max(1, math.ceil(frac * tokens.shape[0]))
+            idx = select_uncertain(tokens, scores, k, dcfg.pad_id)
+            tokens[idx] = beam(idx)
+        else:
+            tokens = beam()
         return tokens.cpu().numpy()
 
-    def predict_batch(self, images: Sequence[Any], max_length: Optional[int] = None,
-                      batch_size: Optional[int] = None, return_ids: bool = False) -> List[Any]:
-        """Greedy-decode ``images`` (paths or arrays) in fixed batches of
-        ``batch_size``; returns LaTeX strings, or id lists with ``return_ids``."""
-        self._check_greedy()
+    def predict_batch(self, images: Sequence[Any], beam_size: Optional[int] = None,
+                      max_length: Optional[int] = None, temperature: Optional[float] = None,
+                      top_k: Optional[int] = None, top_p: Optional[float] = None,
+                      length_penalty: Optional[float] = None, early_exit: Optional[bool] = None,
+                      batch_size: Optional[int] = None, return_ids: bool = False,
+                      selective_beam_frac: Optional[float] = None) -> List[Any]:
+        """Decode ``images`` (paths, PIL images or arrays) in fixed batches of
+        ``batch_size``; returns LaTeX strings, or id lists with ``return_ids``.
+        The decode settings are ``cfg.inference``'s, with the keyword
+        overrides of the JAX package's ``predict_batch``."""
+        dcfg = self.decode_config(beam_size=beam_size, max_length=max_length,
+                                  temperature=temperature, top_k=top_k, top_p=top_p,
+                                  length_penalty=length_penalty, early_exit=early_exit,
+                                  selective_beam_frac=selective_beam_frac)
         B = int(batch_size or self.batch_size)
         h, w, c = self.cfg.image_shape
         pad = self.cfg.preprocessing.pad_value
@@ -112,7 +175,7 @@ class Predictor:
             buf = np.zeros((B, h, w, c), dtype=np.uint8)
             for j, img in enumerate(chunk):
                 buf[j] = prepare_image_u8(img, h, w, c, pad)
-            tokens = self.decode_canvases(buf, max_length)[: len(chunk)]
+            tokens = self.decode_canvases(buf, dcfg=dcfg)[: len(chunk)]
             ids = trim_host(tokens, tok.end_token_id, tok.pad_token_id, start_id=tok.start_token_id)
             results.extend(ids if return_ids else (tok.decode(r) for r in ids))
         return results

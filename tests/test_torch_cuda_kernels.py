@@ -3,7 +3,9 @@
 Ragged shapes the main path does not reach (batches and widths that are not
 multiples of the kernels' tiles, one row, exact argmax ties, attention
 widths A != H, slot counts S that are not multiples of 8, early exit and
-the score signals) at small sizes.
+the score signals; the beam step with exact ties across beams, every row
+finished, one beam, a ragged last block of samples; attention over memories
+shared by several rows) at small sizes.
 Marked ``cuda``: without a CUDA device every test skips.  Imports no JAX, so
 it runs on the card's machine with
 
@@ -14,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from img2latex_tpu_torch.decoding.decode import DecodeConfig
 from img2latex_tpu_torch.ops.conv1_phase import conv1_pool, conv1_pool_plain
+from img2latex_tpu_torch.ops import beam_decode as bd
 from img2latex_tpu_torch.ops import decode_step as ds
 from img2latex_tpu_torch.ops import grid_decode as ds_grid
 
@@ -280,3 +284,157 @@ def test_early_exit_and_scores_ragged(dev, kind, B, S):
         assert margins[r, first[r]].item() <= 1e-3, (r, first[r])
     same = ~torch.from_numpy(diff.any(axis=1)).to(dev)
     torch.testing.assert_close(score[same], ref_score[same], atol=1e-3, rtol=0)
+
+
+def _beam_operands(dev, dtype, B, K, H, Vp, L, seed, tie=False, all_finished=False):
+    """Random beam-step operands: scores with the dead beams of t = 0 in
+    some samples, some finished rows; with ``tie`` each sample's beams have
+    equal h and scores, so every candidate ties across the K beams."""
+    rng = np.random.default_rng(seed)
+    N = B * K
+    h = rng.uniform(-1, 1, (N, H)).astype(np.float32)
+    scores = rng.uniform(-5, 0, N).astype(np.float32)
+    scores.reshape(B, K)[::3, 1:] = -1e30  # samples at t = 0: only beam 0 live
+    fin = (rng.uniform(size=N) < 0.2).astype(np.int32)
+    if all_finished:  # a decode has no dead beams once rows have ended
+        scores = rng.uniform(-5, 0, N).astype(np.float32)
+    if tie:
+        h = np.repeat(h[::K], K, axis=0)
+        scores = np.repeat(scores[::K], K)
+        fin[:] = 0
+    if all_finished:
+        fin[:] = 1
+    w = np.zeros((H, Vp), np.float32)
+    V = Vp - 5
+    w[:, :V] = rng.normal(size=(H, V)) / np.sqrt(H) * 3
+    b = np.full(Vp, -1e30, np.float32)
+    b[:V] = rng.normal(size=V) * 0.3
+    carries = rng.uniform(-1, 1, (2, L, N, H)).astype(np.float32)
+    return dict(h=_t(h, dev, dtype), w_out=_t(w, dev, dtype), b_out=_t(b, dev),
+                scores=_t(scores, dev), fin=torch.from_numpy(fin).to(dev),
+                h_src=_t(carries[0], dev, dtype), c_src=_t(carries[1], dev, dtype))
+
+
+def _run_beam_step(step, op, K, T=4, t=1, end_id=2, pad_id=0):
+    N = op["h"].shape[0]
+    scores, fin = op["scores"].clone(), op["fin"].clone()
+    tokens = torch.full((N,), -1, dtype=torch.int32, device=scores.device)
+    tok_hist = torch.full((T, N), -1, dtype=torch.int32, device=scores.device)
+    par_hist = torch.full((T, N), -1, dtype=torch.int32, device=scores.device)
+    h_dst, c_dst = torch.empty_like(op["h_src"]), torch.empty_like(op["c_src"])
+    step(op["h"], op["w_out"], op["b_out"], scores, fin, tokens, tok_hist, par_hist, t, K, end_id,
+         pad_id, op["h_src"], h_dst, op["c_src"], c_dst)
+    return dict(scores=scores, fin=fin, tokens=tokens, tok_hist=tok_hist, par_hist=par_hist,
+                h_dst=h_dst, c_dst=c_dst)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,H,Vp,L", [(1, 1, 40, 128, 1), (7, 3, 33, 128, 2), (5, 8, 64, 256, 2),
+                                        (3, 16, 40, 128, 1), (11, 5, 96, 512, 2), (17, 1, 48, 256, 2)])
+@pytest.mark.parametrize("case", ["random", "tie", "all_finished"])
+def test_beam_step(dev, dtype, B, K, H, Vp, L, case):
+    """Ragged last blocks (B not a multiple of 16 // K), K = 1 and the
+    largest K, exact ties across beams (the lowest beam must win), every
+    row finished (PAD at +0, identity parents, scores unchanged)."""
+    op = _beam_operands(dev, dtype, B, K, H, Vp, L, B * K + H, tie=case == "tie",
+                        all_finished=case == "all_finished")
+    got = _run_beam_step(bd.beam_step, op, K)
+    ref = _run_beam_step(bd.beam_step_plain, op, K)
+    for name in ("fin", "tokens", "tok_hist", "par_hist", "h_dst", "c_dst"):
+        assert torch.equal(got[name], ref[name]), name
+    torch.testing.assert_close(got["scores"], ref["scores"], atol=1e-5, rtol=1e-6)
+    par = got["par_hist"][1].view(B, K).long()
+    if case == "tie":
+        # K equal best candidates, one in each beam: pick n is beam n's (lowest flat index first)
+        assert torch.equal(par, torch.arange(K, device=dev).expand(B, K))
+        assert (got["tokens"].view(B, K) == got["tokens"].view(B, K)[:, :1]).all()
+    if case == "all_finished":
+        # only PAD at +0 is left: the beams in order of score, their scores unchanged
+        old = op["scores"].view(B, K)
+        assert (got["tokens"] == 0).all() and got["fin"].all()
+        assert torch.equal(got["scores"].view(B, K), old.gather(1, par))
+        assert torch.equal(got["scores"].view(B, K), old.sort(dim=1, descending=True).values)
+    assert (got["tok_hist"][[0, 2, 3]] == -1).all()
+
+
+def test_beam_step_rejects_bad_input(dev):
+    op = _beam_operands(dev, torch.float32, 2, 3, 16, 128, 1, 0)
+    with pytest.raises(ValueError, match=str(bd.MAX_BEAM)):
+        _run_beam_step(bd.beam_step, op, bd.MAX_BEAM + 1)
+    with pytest.raises(ValueError):
+        _run_beam_step(bd.beam_step, op, 4)  # 6 rows are not samples of 4 beams
+    with pytest.raises(ValueError):
+        bd.beam_step(op["h"], op["w_out"], op["b_out"], op["scores"], op["fin"],
+                     torch.empty(6, dtype=torch.int32, device=dev),
+                     torch.empty(2, 6, dtype=torch.int32, device=dev),
+                     torch.empty(2, 6, dtype=torch.int32, device=dev), 0, 3, 2, 0,
+                     op["h_src"], op["h_src"], op["c_src"], torch.empty_like(op["c_src"]))  # aliasing
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,R,S,E,H,A", [(3, 5, 13, 40, 24, 56), (4, 2, 100, 256, 96, 384), (2, 3, 9, 30, 17, 11)])
+def test_attend_step_rows_per_mem(dev, dtype, M, R, S, E, H, A):
+    """R rows share each memory row: equal to the plain version, and bit for
+    bit to the kernel on the memory repeated R times."""
+    h, w_h, v, u, mem = _attention_operands(dev, dtype, M * R, S, E, H, A, M + R + S)
+    u, mem = u[:M].contiguous(), mem[:M].contiguous()
+    ctx = torch.empty(M * R, E, device=dev, dtype=dtype)
+    got = ds_grid.attend_step(h, w_h, v, u, mem, ctx.clone(), rows_per_mem=R)
+    ref = ds_grid.attend_step_plain(h, w_h, v, u, mem, ctx.clone(), rows_per_mem=R)
+    rep = ds_grid.attend_step(h, w_h, v, u.repeat_interleave(R, 0), mem.repeat_interleave(R, 0), ctx.clone())
+    assert torch.equal(got, rep)
+    tol = dict(atol=1e-5, rtol=0) if dtype == torch.float32 else dict(atol=1e-5, rtol=2 * BF16_ULP)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    with pytest.raises(ValueError):
+        ds_grid.attend_step(h[:-1], w_h, v, u, mem, ctx[:-1], rows_per_mem=R)
+
+
+@pytest.mark.parametrize("kind", ["vector", "grid"])
+@pytest.mark.parametrize("B,K", [(13, 3), (4, 5), (9, 1)])
+def test_beam_decode_ragged(dev, kind, B, K):
+    """Whole beam decodes, float32, held against the plain version step by
+    step (``beam_decode.beam_divergence``): before a sample's histories
+    part, each step adds to each beam's score within 5e-5 of the plain
+    version and the scores stay within 1e-4; they first part only at a
+    near-tie of the plain totals (1e-4 plus twice the score difference
+    before it); and with equal histories its best
+    tokens differ only at a near-tie of the final choice; early exit gives
+    the full loop's tokens."""
+    rng = np.random.default_rng(B * K)
+    E, H, A, V, Vp, T, S = 40, 48, 48, 50, 128, 30, 11
+    packed = _small_decoder(dev, rng, E, H, V, Vp)
+    mem = _t(np.maximum(rng.normal(size=(B, S, E)), 0), dev)
+    cfg = DecodeConfig(max_length=T, beam_size=K, length_penalty=0.5)
+    if kind == "grid":
+        att = {"w_h": _t(rng.normal(size=(H, A)) / np.sqrt(H), dev),
+               "w_m": _t(rng.normal(size=(E, A)) / np.sqrt(E), dev),
+               "b": _t(rng.normal(size=A) * 0.1, dev), "v": _t(rng.normal(size=A) / np.sqrt(A), dev),
+               "attn_dim": A, "mem_dim": E, "hidden_dim": H}
+        u = ds_grid.grid_memory_proj(att, mem)
+
+        def run(fn, c, **kw):
+            return fn(packed, att, mem, u, K, c, **kw)
+
+        kernel, plain = ds_grid.grid_beam_decode, ds_grid.grid_beam_decode_plain
+    else:
+        def run(fn, c, **kw):
+            return fn(packed, mem[:, 0, :], K, c, **kw)
+
+        kernel, plain = bd.beam_decode, bd.beam_decode_plain
+    n0 = bd.beam_step.launches
+    tokens, scores = run(kernel, cfg)
+    assert bd.beam_step.launches - n0 == T
+    got_trace, ref_trace = {}, {}
+    assert torch.equal(run(kernel, cfg, trace=got_trace)[0], tokens)
+    ref, ref_scores = run(plain, cfg, trace=ref_trace)
+    div = bd.beam_divergence(got_trace, ref_trace)
+    drift = div["drift"]
+    assert (drift <= 1e-4).all() and (div["step_err"] <= 5e-5).all(), div
+    parted = div["first"] < T
+    assert (div["gap"][parted] <= 1e-4 + 2 * drift[parted]).all(), div
+    diff = (tokens != ref).any(dim=1)
+    assert (ref_trace["choice_gap"][diff & ~parted] <= drift[diff & ~parted] + 1e-5).all()
+    same = ~diff
+    torch.testing.assert_close(scores[same], ref_scores[same], atol=1e-4, rtol=1e-5)
+    early, _ = run(kernel, DecodeConfig(max_length=T, beam_size=K, length_penalty=0.5, early_exit=True))
+    assert torch.equal(early, tokens)

@@ -7,10 +7,11 @@ import pytest
 
 from img2latex_tpu.config import Config as JaxConfig
 from img2latex_tpu.data.tokenizer import LaTeXTokenizer as JaxTokenizer
+from img2latex_tpu.data.transforms import load_image_u8 as jax_load
 from img2latex_tpu.data.transforms import prepare_image_u8 as jax_prepare
 from img2latex_tpu_torch.config import Config, config_from_dict, load_config
 from img2latex_tpu_torch.data.tokenizer import LaTeXTokenizer
-from img2latex_tpu_torch.data.transforms import prepare_image_u8
+from img2latex_tpu_torch.data.transforms import load_image_u8, prepare_image_u8
 
 FORMULAS = ["\\frac { a } { b } + c", "x ^ { 2 } + y ^ { 2 } = z ^ { 2 }", "\\sum _ { i } x _ i", "a + b"]
 
@@ -80,3 +81,48 @@ def test_prepare_image_matches_jax(kind):
 def test_prepare_off_size_image_resizes_like_jax():
     img = np.random.default_rng(1).integers(0, 256, size=(20, 40), dtype=np.uint8)
     np.testing.assert_array_equal(prepare_image_u8(img, 16, 64, 1), jax_prepare(img, 16, 64, 1))
+
+
+def _pil_image(mode):
+    from PIL import Image
+
+    rng = np.random.default_rng(2)
+    rgb = Image.fromarray(rng.integers(0, 256, size=(16, 64, 3), dtype=np.uint8), mode="RGB")
+    if mode == "P":
+        return rgb.quantize(16)
+    return rgb.convert(mode)
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("mode", ["L", "P", "RGB", "RGBA", "LA"])
+def test_prepare_pil_image_matches_jax(mode, channels):
+    img = _pil_image(mode)
+    assert img.mode == mode
+    got = prepare_image_u8(img, 16, 64, channels)
+    assert got.dtype == np.uint8 and got.shape == (16, 64, channels)
+    np.testing.assert_array_equal(got, jax_prepare(img, 16, 64, channels))
+    off = img.resize((40, 20))  # off-size: resized to the canvas
+    np.testing.assert_array_equal(prepare_image_u8(off, 16, 64, channels),
+                                  jax_prepare(off, 16, 64, channels))
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_unreadable_file_gives_jax_zero_canvas(tmp_path, channels):
+    path = tmp_path / "broken.png"
+    path.write_bytes(b"not a png")
+    assert len(path.read_bytes()) == 9
+    ref = jax_load(str(path), (16, 64), channels)
+    got = load_image_u8(str(path), 16, 64, channels)
+    assert got.dtype == np.uint8 and got.shape == (16, 64, channels) and not got.any()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(prepare_image_u8(str(path), 16, 64, channels), ref)
+
+
+@pytest.mark.parametrize("load", ["port", "jax"])
+def test_missing_file_raises(tmp_path, load):
+    path = str(tmp_path / "missing.png")
+    with pytest.raises(FileNotFoundError):
+        if load == "port":
+            load_image_u8(path, 16, 64, 1)
+        else:
+            jax_load(path, (16, 64), 1)

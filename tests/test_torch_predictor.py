@@ -101,13 +101,18 @@ def test_tokens_end_then_pad(pair):
 
 
 def test_beam_and_sampling_not_ported(pair):
+    """Beam is ported now (from the config or the keyword); sampling still raises."""
     _, tpred = pair
     tpred.cfg.inference.beam_size = 3
     try:
-        with pytest.raises(NotImplementedError):
-            tpred.predict_batch(_images(1))
+        assert len(tpred.predict_batch(_images(1), return_ids=True)) == 1
     finally:
         tpred.cfg.inference.beam_size = 0
+    assert len(tpred.predict_batch(_images(1), beam_size=2, return_ids=True)) == 1
+    for kw in ({"top_k": 5}, {"top_p": 0.9}, {"top_k": 3, "temperature": 0.7}):
+        with pytest.raises(NotImplementedError):
+            tpred.predict_batch(_images(1), **kw)
+    assert tpred.predict_batch(_images(1), temperature=0.5) == tpred.predict_batch(_images(1))
 
 
 def test_no_card_and_no_cpu_raises(monkeypatch):
