@@ -5,8 +5,8 @@
 
 Builds the port's CUDA kernels with nvcc, holds each against its plain
 PyTorch version on the card, then drives the two greedy paths and the grid
-beam and selective-beam paths through ``Predictor.predict_batch`` and
-checks that every kernel of each ran and that the output is right:
+beam, selective-beam and sampling paths through ``Predictor.predict_batch``
+and checks that every kernel of each ran and that the output is right:
 
 * vector memory at bench.py's width: 64x800 canvas, filters [32, 64, 128],
   E = H = 512, 2 LSTM layers, vocab 503, 141 steps, bf16;
@@ -17,9 +17,15 @@ checks that every kernel of each ran and that the output is right:
 
 Weights are random, from a seed.  Also holds early exit (tokens equal to
 the full loop) and the four per-row score signals of both greedy decodes
-against their plain versions, and the beam step, the attention over
-memories shared by K beams and the whole beam decode of both memory kinds
-(K = 5, with early exit and a length penalty) against theirs.
+against their plain versions, the beam step (K = 5, and K = 20, wider than
+a kernel block), the attention over memories shared by K beams and the
+whole beam decode of both memory kinds (K = 5, with early exit and a length
+penalty) against theirs; and sampling: the vocab-sample step alone under
+four filter settings, its draws against ``next_token_probs`` (chi-square),
+the whole sampling decode of both kinds step by step against the plain
+version (and three deliberately broken samplers that must fail that rule),
+with early exit, and grid ``predict_batch`` at temperature 0.8, top-k 10,
+top-p 0.9.
 
 Prints its findings on earlier lines, then a ``{"kernels": [...]}`` line,
 the card's name and power limit from nvidia-smi, and last
@@ -29,6 +35,7 @@ there is no CUDA device or any phase fails.  Imports no JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -151,6 +158,36 @@ BEAM_MIN_DISTINCT = 10
 # this, so that its memories spread across canvases as phase 8's random
 # memories do (see phase_grid_beam_end_to_end).
 HEAD_GAIN = 32.0
+WIDE_BEAM = 20  # beam_step beyond a kernel block's 16 rows (a block a sample)
+# Sampling.  The four settings of vocab_sample_step alone; the whole decodes
+# and predict_batch run SAMPLE (temperature 0.8, top-k 10, top-p 0.9), and
+# the whole decodes also top-p 0.9 alone, in float32.
+SAMPLE_SETTINGS = (dict(top_k=5), dict(top_p=0.9), dict(top_k=10, top_p=0.9, temperature=0.8), dict(top_k=1))
+SAMPLE = dict(top_k=10, top_p=0.9, temperature=0.8)
+SAMPLE_SEED = 1234
+# The sampling rule: with the same random stream, the kernel and the plain
+# version draw the same token unless their logits differ by more than the
+# plain version's distance to a knife edge at that step
+# (ops/decode_step.py::sample_tokens): its two best perturbed scores, the
+# k-th and (k+1)-th logits, or the logits of the nucleus's last token and of
+# the first one left out, within SAMPLE_GAP_TOL; or the mass before either
+# of those two within SAMPLE_MASS_TOL of top_p.  Every row that differs
+# must first differ at such a step.
+# Readings on the H100 (float32 / bf16, B = 512, T = 141): the step alone
+# draws the plain version's token on every row in every setting, both types
+# (the same operands: the logits differ by sums in another order, ~1e-6);
+# whole decodes in float32, the decode setting and top-p 0.9 alone, 512/512
+# rows equal; in bf16, where carries that round the other way move later
+# logits, 98.0% (vector) and 85.4% (grid) of the rows equal, each first
+# differing at a logit gap <= 8.6e-4 (none needed the mass limit; the masses
+# of those steps were >= 1.8e-3 from p).  The limits: float32 a rounding
+# step of logits and masses of ~1 with room; bf16 2x the largest gap seen,
+# the mass limit 5x the logit one scaled by a kept token's mass (~0.1),
+# and row floors 0.99 / 0.75.
+SAMPLE_GAP_TOL = {"float32": 1e-4, "bfloat16": 2e-3}
+SAMPLE_MASS_TOL = {"float32": 1e-5, "bfloat16": 5e-4}
+SAMPLE_MIN_ROW_MATCH = {"float32": 0.99, "bfloat16": 0.75}
+N_DRAWS_SEEDS = 16  # chi-square: one row's logits over BATCH rows and this many seeds
 
 
 def log(msg: str) -> None:
@@ -250,7 +287,8 @@ def log_profile(what: str, card: str, fn) -> None:
         t = getattr(e, "self_device_time_total", 0) or 0
         if t > 0:
             key = next((k for k in ("attend_hw_kernel", "attend_kernel", "lstm_layer_step_kernel",
-                                    "vocab_argmax_step_kernel", "beam_step_kernel") if k in e.key), "other")
+                                    "vocab_argmax_step_kernel", "beam_step_kernel", "vocab_sample_step_kernel")
+                        if k in e.key), "other")
             ms, n = by_kernel.get(key, (0.0, 0))
             by_kernel[key] = (ms + t / 1e3, n + e.count)
     busy = sum(ms for ms, _ in by_kernel.values())
@@ -588,15 +626,15 @@ def _beam_step_run(step, op, K, out=None, **kw):
 
 def phase_beam_step(dev, rng, card: str, kernels: dict) -> None:
     """beam_step against beam_step_plain at B = BATCH samples of K = BEAM
-    beams, both widths and both types, random and with forced exact ties."""
+    beams, both widths and both types, random and with forced exact ties;
+    and of K = WIDE_BEAM beams at the grid width (a kernel block a sample)."""
     import torch
 
     from img2latex_tpu_torch.ops.beam_decode import beam_step, beam_step_plain
 
-    B, K, Vp = BATCH, BEAM, 512
-    N = B * K
+    B, Vp = BATCH, 512
     errs = {}
-    for width, H in (("vector", HIDDEN), ("grid", GRID_HIDDEN)):
+    for width, H, K in (("vector", HIDDEN, BEAM), ("grid", GRID_HIDDEN, BEAM), ("grid", GRID_HIDDEN, WIDE_BEAM)):
         for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             for tie in (False, True):
                 op = _beam_step_operands(dev, rng, B, K, H, Vp, dtype, tie=tie)
@@ -611,16 +649,18 @@ def phase_beam_step(dev, rng, card: str, kernels: dict) -> None:
                 bad += [k for k in ("tok_hist", "par_hist") if not torch.equal(got[k][3][rows], ref[k][3][rows])]
                 bad += [k for k in ("h_dst", "c_dst") if not torch.equal(got[k][:, rows], ref[k][:, rows])]
                 err = (got["scores"][rows] - ref["scores"][rows]).abs().max().item()
-                errs[(width, name, tie)] = err
+                errs[(width, name, tie, K)] = err
                 log(f"beam_step {width} H={H} {name}{' ties' if tie else ''} B={B} K={K}: "
                     f"{int(clear.sum())}/{B} samples clear of near-ties (gap > {BEAM_STEP_GAP}); "
                     f"mismatches {bad or 'none'}; score max abs err {err:.3g} (tol {BEAM_STEP_ATOL})")
                 check(not bad and err <= BEAM_STEP_ATOL and float(clear.float().mean()) >= 0.99,
-                      f"beam_step {width} {name} tie={tie} disagrees with its plain version")
+                      f"beam_step {width} {name} tie={tie} K={K} disagrees with its plain version")
                 if tie:
                     par = got["par_hist"][3].view(B, K).long()
                     check(torch.equal(par, torch.arange(K, device=dev).expand(B, K)),
                           "beam_step ties: the picks are not beam 0..K-1 in order")
+    K = BEAM
+    N = B * K
     # timing at both widths, bf16; the kernels line keeps the grid path's
     for width, H in (("vector", HIDDEN), ("grid", GRID_HIDDEN)):
         op = _beam_step_operands(dev, rng, B, K, H, Vp, torch.bfloat16)
@@ -637,7 +677,7 @@ def phase_beam_step(dev, rng, card: str, kernels: dict) -> None:
             f"+ carry gather [{card}]")
     kernels["beam_step"] = dict(
         name="beam_step", route="cuda", source="img2latex_tpu_torch/csrc/beam_step.cu",
-        replaces="img2latex_tpu/ops/pallas/beam_decode.py:335", max_abs_err=errs[("grid", "float32", False)],
+        replaces="img2latex_tpu/ops/pallas/beam_decode.py:335", max_abs_err=errs[("grid", "float32", False, BEAM)],
         ms=ms_k, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=None)
 
 
@@ -1011,6 +1051,347 @@ def phase_grid_beam_end_to_end(dev, card, gcfg, gmodel, tokenizer, images, kerne
                 p.copy_(v)
 
 
+def compare_draws(got, ref, gaps, mass_gaps, dtype: str):
+    """The sampling rule (see SAMPLE_GAP_TOL): ``got`` and ``ref`` are (B,
+    T) tokens (or (B,) of one step), ``gaps`` and ``mass_gaps`` the plain
+    version's distances to a knife edge, all numpy.  Returns (ok, stats)."""
+    if got.ndim == 1:
+        got, ref, gaps, mass_gaps = got[:, None], ref[:, None], gaps[:, None], mass_gaps[:, None]
+    diff = got != ref
+    rows = np.where(diff.any(axis=1))[0]
+    first = diff.argmax(axis=1)
+    g = np.array([gaps[r, first[r]] for r in rows])
+    m = np.array([mass_gaps[r, first[r]] for r in rows])
+    excused = (g <= SAMPLE_GAP_TOL[dtype]) | (m <= SAMPLE_MASS_TOL[dtype])
+    finite = gaps[np.isfinite(gaps)]
+    floor = SAMPLE_MIN_ROW_MATCH[dtype]
+    stats = {"rows": int(got.shape[0]), "rows_differ": int(len(rows)),
+             "row_match": float(1.0 - len(rows) / got.shape[0]),
+             "rows_differ_at_gap": int((g <= SAMPLE_GAP_TOL[dtype]).sum()),
+             "rows_differ_at_mass_gap": int((m <= SAMPLE_MASS_TOL[dtype]).sum()),
+             "rows_differ_unexplained": int((~excused).sum()),
+             "max_gap_at_first_diff": float(np.where(g <= SAMPLE_GAP_TOL[dtype], g, 0).max()) if len(rows) else None,
+             "max_mass_gap_at_first_diff": float(np.where(m <= SAMPLE_MASS_TOL[dtype], m, 0).max()) if len(rows) else None,
+             "median_gap": float(np.median(finite)) if finite.size else None,
+             "ref_distinct_tokens": int(len(np.unique(ref))),
+             "ref_rows_ended": int((ref == END_ID).any(axis=1).sum()),
+             "gap_tol": SAMPLE_GAP_TOL[dtype], "mass_tol": SAMPLE_MASS_TOL[dtype], "min_row_match": floor}
+    ok = bool(excused.all()) and stats["row_match"] >= floor
+    return ok, stats
+
+
+def _sample_step_operands(dev, rng, B, H, Vp, dtype):
+    """Random vocab-sample-step operands at the main path's shapes: h, a
+    vocab of VOCAB columns padded to Vp (w_out, b_out float32 with -1e30 on
+    the padding), every 7th row finished."""
+    import torch
+
+    w = np.zeros((H, Vp), np.float32)
+    w[:, :VOCAB] = rng.standard_normal((H, VOCAB), dtype=np.float32) * 3 / np.sqrt(H)
+    b = np.full(Vp, -1e30, np.float32)
+    b[:VOCAB] = rng.standard_normal(VOCAB, dtype=np.float32) * BIAS_STD
+    return {"h": torch.from_numpy(rng.uniform(-1, 1, (B, H)).astype(np.float32)).to(dev, dtype),
+            "w_out": torch.from_numpy(w).to(dev, dtype), "b_out": torch.from_numpy(b).to(dev),
+            "fin": torch.from_numpy((np.arange(B) % 7 == 6).astype(np.int32)).to(dev)}
+
+
+def _sample_step_run(step, op, t=3, out=None, **kw):
+    """One sampling step on copies of the operands (into ``out`` when given)."""
+    import torch
+
+    B, dev = op["h"].shape[0], op["h"].device
+    if out is None:
+        out = dict(tok=torch.empty((B,), dtype=torch.int32, device=dev), fin=op["fin"].clone(),
+                   out=torch.zeros((B, MAX_LEN), dtype=torch.int32, device=dev))
+    step(op["h"], op["w_out"], op["b_out"], out["tok"], out["fin"], out["out"], t, END_ID, 0, **kw)
+    return out
+
+
+def phase_sample_step(dev, rng, card: str, kernels: dict) -> None:
+    """vocab_sample_step against its plain version at B = BATCH, both widths
+    and types, the four SAMPLE_SETTINGS (the temperature folded into the
+    weights as the decode folds it); its time and bound in bf16."""
+    import torch
+
+    from img2latex_tpu_torch.ops.decode_step import fold_temperature, vocab_sample_step, vocab_sample_step_plain
+
+    B, Vp = BATCH, 512
+    worst = 0.0
+    for width, H in (("vector", HIDDEN), ("grid", GRID_HIDDEN)):
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            op0 = _sample_step_operands(dev, rng, B, H, Vp, dtype)
+            for setting in SAMPLE_SETTINGS:
+                kw = dict(setting)
+                folded = fold_temperature({"w_out": op0["w_out"], "b_out": op0["b_out"]}, kw.pop("temperature", 1.0))
+                op = dict(op0, w_out=folded["w_out"], b_out=folded["b_out"])
+                seed = int(rng.integers(-(2**31), 2**31))
+                got = _sample_step_run(vocab_sample_step, op, seed=seed, **kw)
+                gaps = torch.full((B, MAX_LEN), float("inf"), device=dev)
+                mass = torch.full((B, MAX_LEN), float("inf"), device=dev)
+                ref = _sample_step_run(vocab_sample_step_plain, op, seed=seed, gaps=gaps, mass_gaps=mass, **kw)
+                ok, stats = compare_draws(got["tok"].cpu().numpy(), ref["tok"].cpu().numpy(),
+                                          gaps[:, 3].cpu().numpy(), mass[:, 3].cpu().numpy(), "float32")
+                log(f"vocab_sample_step {width} H={H} {name} B={B} {json.dumps(setting)}: "
+                    f"{json.dumps({k: stats[k] for k in ('rows_differ', 'rows_differ_unexplained', 'max_gap_at_first_diff', 'max_mass_gap_at_first_diff', 'median_gap')})}")
+                check(ok and stats["rows_differ"] <= B // 100,
+                      f"vocab_sample_step {width} {name} {setting} disagrees with its plain version")
+                if stats["rows_differ"] == 0:
+                    check(torch.equal(got["fin"], ref["fin"]) and torch.equal(got["out"], ref["out"]),
+                          "vocab_sample_step: finished or out differ")
+                if name == "float32" and stats["rows_differ"]:
+                    worst = max(worst, stats["max_gap_at_first_diff"], stats["max_mass_gap_at_first_diff"])
+                if setting == dict(top_k=1):  # the argmax where it is unique
+                    lg = op["h"].float() @ op["w_out"].float() + op["b_out"]
+                    top2 = torch.topk(lg, 2, dim=-1).values
+                    live = (op["fin"] == 0) & (top2[:, 0] > top2[:, 1])
+                    check(torch.equal(got["tok"][live].long(), lg.argmax(-1)[live]), "vocab_sample_step top_k=1")
+    # time, bound: the decode's setting, both widths (the kernels line keeps the grid path's)
+    for width, H in (("vector", HIDDEN), ("grid", GRID_HIDDEN)):
+        op0 = _sample_step_operands(dev, rng, B, H, Vp, torch.bfloat16)
+        folded = fold_temperature({"w_out": op0["w_out"], "b_out": op0["b_out"]}, SAMPLE["temperature"])
+        op = dict(op0, w_out=folded["w_out"], b_out=folded["b_out"])
+        kw = dict(top_k=SAMPLE["top_k"], top_p=SAMPLE["top_p"], seed=SAMPLE_SEED)
+        out_k, out_p = _sample_step_run(vocab_sample_step, op, **kw), _sample_step_run(vocab_sample_step_plain, op, **kw)
+        ms_k = time_ms(lambda: _sample_step_run(vocab_sample_step, op, out=out_k, **kw), iters=50, warmup=5)
+        ms_p = time_ms(lambda: _sample_step_run(vocab_sample_step_plain, op, out=out_p, **kw), iters=10)
+        ms_each = {json.dumps(st): time_ms(lambda st=st: _sample_step_run(
+            vocab_sample_step, op, out=out_k, seed=SAMPLE_SEED, top_k=st.get("top_k", 0), top_p=st.get("top_p", 0.0)),
+            iters=20, warmup=2) for st in SAMPLE_SETTINGS}
+        # h, W_out and b_out read, finished read and written, tokens and the out column written
+        nbytes = B * H * 2 + H * Vp * 2 + Vp * 4 + B * 4 * 4
+        flops = 2 * B * H * Vp
+        bnd, by = bound_ms(nbytes, flops, "bfloat16")
+        log(f"vocab_sample_step {width} bf16 B={B} H={H} Vp={Vp} {json.dumps(SAMPLE)}: kernel {ms_k:.4f} ms, "
+            f"plain {ms_p:.4f} ms, bound {bnd:.4f} ms ({by}); each setting (ms): {json.dumps(ms_each)}; "
+            f"no single PyTorch call applies top-k, renormalization, top-p and the draw [{card}]")
+    kernels["vocab_sample_step"] = dict(
+        name="vocab_sample_step", route="cuda", source="img2latex_tpu_torch/csrc/sample_step.cu",
+        replaces="img2latex_tpu/ops/pallas/grid_decode.py:665", max_abs_err=worst,
+        ms=ms_k, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=None)
+
+
+def phase_sample_draws(dev, rng) -> None:
+    """The kernel's draws from one row's logits (vector width, float32) over
+    BATCH rows and N_DRAWS_SEEDS seeds, for each of SAMPLE_SETTINGS: none
+    outside the support of ``next_token_probs``, and a chi-square test of
+    the counts over the support (p >= 1e-3)."""
+    import torch
+    from scipy import stats as sstats
+
+    from img2latex_tpu_torch.decoding.decode import DecodeConfig, next_token_probs
+    from img2latex_tpu_torch.ops.decode_step import fold_temperature, vocab_sample_step
+
+    op0 = _sample_step_operands(dev, rng, BATCH, HIDDEN, 512, torch.float32)
+    h = op0["h"][:1].expand(BATCH, HIDDEN).contiguous()
+    for setting in SAMPLE_SETTINGS:
+        kw = dict(setting)
+        temp = kw.pop("temperature", 1.0)
+        folded = fold_temperature({"w_out": op0["w_out"], "b_out": op0["b_out"]}, temp)
+        tok = torch.empty((BATCH,), dtype=torch.int32, device=dev)
+        counts = torch.zeros(512, dtype=torch.float64, device=dev)
+        for s in range(N_DRAWS_SEEDS):
+            vocab_sample_step(h, folded["w_out"], folded["b_out"], tok, None, None, 0, END_ID, 0,
+                              seed=SAMPLE_SEED + 1000 * s, **kw)
+            counts += torch.bincount(tok.long(), minlength=512).double()
+        logits = (h[:1] @ op0["w_out"] + op0["b_out"])[:, :VOCAB]
+        probs = next_token_probs(logits, DecodeConfig(temperature=temp, **kw))[0].double()
+        support = probs > 0
+        n = float(counts.sum())
+        outside = float(counts[:VOCAB][~support].sum() + counts[VOCAB:].sum())
+        if int(support.sum()) > 1:
+            expected = (probs[support] / probs[support].sum() * n).cpu().numpy()
+            p = float(sstats.chisquare(counts[:VOCAB][support].cpu().numpy(), expected).pvalue)
+        else:
+            p = 1.0 if outside == 0 else 0.0
+        log(f"vocab_sample_step draws {json.dumps(setting)}: {int(n)} draws, support {int(support.sum())} tokens, "
+            f"{int(outside)} outside it, chi-square p = {p:.4g} (limit 1e-3)")
+        check(outside == 0 and p >= 1e-3, f"vocab_sample_step draws {setting} do not follow next_token_probs")
+
+
+def _sample_decoders(kind: str, model, inp, dtype, setting, seed=SAMPLE_SEED):
+    """(kernel sampling decode, plain sampling decode returning the gaps,
+    kernel-LSTM decode through a given vocab step function) of one memory
+    kind, each a function of keyword options."""
+    from img2latex_tpu_torch.ops import decode_step as ds
+    from img2latex_tpu_torch.ops import grid_decode as gd
+
+    kw = dict(setting)
+    top_k, temp = kw.pop("top_k", 0), kw.pop("temperature", 1.0)
+    packed = ds.pack_decoder_weights(model.decoder, dtype)
+    folded = ds.fold_temperature(packed, temp)
+    if kind == "vector":
+        ctx = inp.to(dtype)
+        return (lambda **o: ds.sample_decode(packed, ctx, MAX_LEN, 1, END_ID, 0, top_k, seed, temp, **kw, **o),
+                lambda **o: ds.sample_decode_plain(packed, ctx, MAX_LEN, 1, END_ID, 0, top_k, seed, temp,
+                                                   return_gaps=True, **kw, **o),
+                lambda step: ds._vector(ds.lstm_layer_step, step, folded, ctx, MAX_LEN, 1, END_ID, 0))
+    att = gd.pack_attention_weights(model.decoder, dtype)
+    mem = inp.to(dtype)
+    u = gd.grid_memory_proj(att, mem)
+    tile = gd.auto_tile(packed, att, mem.shape[1], batch=mem.shape[0])
+    return (lambda **o: gd.grid_sample_decode(packed, att, mem, u, MAX_LEN, 1, END_ID, 0, top_k, seed, temp, **kw, **o),
+            lambda **o: gd.grid_sample_decode_plain(packed, att, mem, u, MAX_LEN, 1, END_ID, 0, top_k, seed, temp,
+                                                    return_gaps=True, **kw, **o),
+            lambda step: gd._grid(ds.lstm_layer_step, functools.partial(step, tile=tile), gd.attend_step,
+                                  folded, att, mem, u, MAX_LEN, 1, END_ID, 0, False))
+
+
+def _broken_sample_step(mode: str, setting, seed=SAMPLE_SEED):
+    """A vocab step that draws as the plain version but broken: "row" hashes
+    each row with the next row's index, "top_k" keeps k + 1 tokens, "nucleus"
+    never draws the nucleus's first (most probable) token."""
+    import torch
+
+    from img2latex_tpu_torch.ops.decode_step import BATCH_TILE, sample_tokens, uniform_field
+
+    top_k, top_p = setting.get("top_k", 0), setting.get("top_p", 0.0)
+
+    def step(h, w_out, b_out, tokens, finished, out, t, end_id, pad_id, tile=BATCH_TILE):
+        logits = h.float() @ w_out.float() + b_out
+        B, Vp = logits.shape
+        u = uniform_field(seed, t, B + (mode == "row"), Vp, tile, device=h.device)[(mode == "row"):]
+        if mode == "nucleus":  # u = 0: -log(-log u) = -inf, the token never wins the draw
+            u = u.scatter(1, logits.argmax(dim=-1, keepdim=True), 0.0)
+        nxt = sample_tokens(logits, u, top_k + (mode == "top_k"), top_p)[0]
+        nxt = torch.where(finished.bool(), torch.full_like(nxt, pad_id), nxt)
+        finished.copy_(torch.maximum(finished, (nxt == end_id).to(torch.int32)))
+        tokens.copy_(nxt)
+        out[:, t] = nxt
+
+    return step
+
+
+def phase_sample_decode(models, card: str) -> None:
+    """Both memory kinds, B = BATCH, T = MAX_LEN: the whole sampling decode
+    against its plain version (same seed) under the sampling rule, in both
+    types with SAMPLE and in float32 with top-p 0.9 alone; decodes through
+    the three broken samplers fail the rule; early exit on a model whose rows
+    all end gives the full loop's tokens; times in bf16."""
+    import torch
+
+    from img2latex_tpu_torch.ops.decode_step import vocab_sample_step
+
+    for kind, (model, inp) in models.items():
+        for setting, name, dtype in ((SAMPLE, "float32", torch.float32), (SAMPLE, "bfloat16", torch.bfloat16),
+                                     (dict(top_p=0.9), "float32", torch.float32)):
+            kernel, plain, through = _sample_decoders(kind, model, inp, dtype, setting)
+            got = kernel()
+            ref, gaps, mass = plain()
+            check(tuple(got.shape) == (BATCH, MAX_LEN) and got.dtype == torch.int32, "sample decode output")
+            ok, stats = compare_draws(got.cpu().numpy(), ref.cpu().numpy(), gaps.cpu().numpy(), mass.cpu().numpy(),
+                                      name)
+            what = f"sample_decode {kind} {name} B={BATCH} T={MAX_LEN} {json.dumps(setting)}"
+            log(f"{what}: {json.dumps(stats)}")
+            check(ok and stats["ref_rows_ended"] > 0 and stats["ref_distinct_tokens"] >= 10, f"{what} disagrees")
+            if setting is SAMPLE:  # the rule fails decodes through a broken sampler
+                for mode in ("row", "top_k", "nucleus"):
+                    broken = through(_broken_sample_step(mode, setting))
+                    bad, bstats = compare_draws(broken.cpu().numpy(), ref.cpu().numpy(), gaps.cpu().numpy(),
+                                                mass.cpu().numpy(), name)
+                    log(f"sampling rule against a broken sampler ({mode}), {kind} {name}: fails {not bad}; "
+                        + json.dumps({k: bstats[k] for k in ("row_match", "rows_differ_unexplained")}))
+                    check(not bad, f"the sampling rule passes a decode through a broken sampler ({mode}, {kind})")
+        kernel, plain, _ = _sample_decoders(kind, model, inp, torch.bfloat16, SAMPLE)
+        ms_k = time_ms(kernel, iters=3, warmup=1)
+        ms_p = time_ms(plain, iters=2, warmup=1)
+        log(f"{kind} sample decode bf16 B={BATCH} T={MAX_LEN} {json.dumps(SAMPLE)}: kernels {ms_k:.3f} ms, "
+            f"plain {ms_p:.3f} ms [{card}]")
+        # early exit on a model whose rows all end
+        out = model.decoder.cell.out
+        saved = (out.weight.detach().clone(), out.bias.detach().clone())
+        try:
+            _make_rows_end(kind, model, inp, lambda: _sample_decoders(kind, model, inp, torch.bfloat16, SAMPLE)[0]())
+            with torch.no_grad():  # END a little stronger: the least bias that ends every row ends one late
+                out.bias[END_ID] += 1.0
+            kernel = _sample_decoders(kind, model, inp, torch.bfloat16, SAMPLE)[0]
+            full = kernel()
+            n0 = vocab_sample_step.launches
+            early = kernel(early_exit=True)
+            steps = vocab_sample_step.launches - n0
+            end_at = (full == END_ID).int().argmax(dim=1).float()
+            log(f"sample early exit {kind} bf16 B={BATCH}: rows end at steps {int(end_at.min())}..{int(end_at.max())}, "
+                f"{steps} of {MAX_LEN} steps run; tokens equal to the full loop: {bool(torch.equal(early, full))}")
+            check(bool((full == END_ID).any(dim=1).all()), f"sample early exit {kind}: not every row ends")
+            check(torch.equal(early, full) and steps < MAX_LEN, f"sample early exit {kind}: differs or ran every step")
+        finally:
+            with torch.no_grad():
+                out.weight.copy_(saved[0])
+                out.bias.copy_(saved[1])
+
+
+def phase_grid_sample_end_to_end(dev, card, gcfg, gmodel, tokenizer, images, kernels) -> None:
+    """Grid Predictor.predict_batch with SAMPLE at full width in bf16 on the
+    grid greedy phase's canvases: images/s, the launches, a torch.profiler
+    split of one decode; the first batch equals the sampling decode of its
+    memory with the batch's seed, and holds against the plain path under
+    the sampling rule."""
+    import torch
+    import torch.nn.functional as F
+
+    from img2latex_tpu_torch.ops.conv1_phase import conv1_pool, conv1_pool_plain
+    from img2latex_tpu_torch.ops.decode_step import lstm_layer_step, vocab_argmax_step, vocab_sample_step
+    from img2latex_tpu_torch.ops.grid_decode import (
+        attend_step, grid_memory_proj, grid_sample_decode, grid_sample_decode_plain,
+    )
+    from img2latex_tpu_torch.ops.preprocess import normalize_images
+    from img2latex_tpu_torch.training.predictor import Predictor, batch_seed
+
+    pred = Predictor(gcfg, gmodel, tokenizer, batch_size=BATCH)
+    pred.predict_batch(images[:BATCH], return_ids=True, **SAMPLE)  # warm-up
+    torch.cuda.synchronize()
+    counters = (conv1_pool, attend_step, lstm_layer_step, vocab_sample_step, vocab_argmax_step)
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    ids = pred.predict_batch(images, return_ids=True, seed=SAMPLE_SEED, **SAMPLE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in counters}
+    log(f"grid predict_batch, sampling {json.dumps(SAMPLE)}: {N_IMAGES} images in {wall:.3f} s = "
+        f"{N_IMAGES / wall:.1f} images/s (batch {BATCH}, bf16, card {card}); launches {json.dumps(launches)}")
+    for name in ("conv1_pool", "attend_step", "lstm_layer_step", "vocab_sample_step"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the grid sampling path")
+    check(launches["vocab_argmax_step"] == 0, "the sampling path launched the argmax kernel")
+    kernels["vocab_sample_step"]["launches"] = launches["vocab_sample_step"]
+    check(len(ids) == N_IMAGES and all(len(r) <= MAX_LEN for r in ids), "grid sampling predict_batch output")
+    check(all(tokenizer.end_token_id not in r and all(0 <= t < VOCAB for t in r) for r in ids),
+          "grid sampling trimmed ids")
+    check(len({t for r in ids for t in r}) >= 10, "grid sampling ids use fewer than 10 tokens")
+
+    canv = np.stack(images[:BATCH])
+    dcfg = pred.decode_config(**SAMPLE)
+    seed = batch_seed(SAMPLE_SEED, 0)
+    toks = pred.decode_canvases(canv, dcfg=dcfg, seed=seed)
+    is_end = toks == END_ID
+    check(bool((toks[np.cumsum(is_end, axis=1) - is_end > 0] == 0).all()), "grid sampling: a token other than PAD follows END")
+    enc = gmodel.encoder
+    att, packed = pred.packed_attention(), pred.packed_decoder()
+    kw = dict(top_p=SAMPLE["top_p"], temperature=SAMPLE["temperature"])
+    with torch.no_grad():
+        x = normalize_images(torch.from_numpy(canv).to(dev), dtype=torch.bfloat16)
+        mem = gmodel.encode(x)
+        u = grid_memory_proj(att, mem)
+        got = grid_sample_decode(packed, att, mem, u, MAX_LEN, 1, END_ID, 0, SAMPLE["top_k"], seed, **kw)
+        y = conv1_pool_plain(x, enc.convs[0].weight, enc.convs[0].bias)
+        for conv in enc.convs[1:]:
+            y = F.max_pool2d(F.relu(F.conv2d(y, conv.weight.to(y.dtype), conv.bias.to(y.dtype), padding=1)), 2)
+        Bc, C, Hf, Wf = y.shape
+        mem_ref = F.relu(F.linear(y.permute(0, 3, 2, 1).reshape(Bc, Wf, Hf * C), enc.head.weight.to(y.dtype),
+                                  enc.head.bias.to(y.dtype)))
+        ref, gaps, mass = grid_sample_decode_plain(packed, att, mem_ref, grid_memory_proj(att, mem_ref), MAX_LEN, 1,
+                                                   END_ID, 0, SAMPLE["top_k"], seed, return_gaps=True, **kw)
+    check(np.array_equal(got.cpu().numpy(), toks), "grid sampling: predict_batch's tokens differ from the decode of its memory")
+    ok, stats = compare_draws(toks, ref.cpu().numpy(), gaps.cpu().numpy(), mass.cpu().numpy(), "bfloat16")
+    log(f"grid sampling end to end vs plain path ({BATCH} images): {json.dumps(stats)}")
+    check(ok, "grid sampling end-to-end output disagrees with the plain path")
+    with torch.no_grad():
+        ms_dec = time_ms(lambda: grid_sample_decode(packed, att, mem, u, MAX_LEN, 1, END_ID, 0, SAMPLE["top_k"], seed,
+                                                    **kw), iters=3, warmup=1)
+    log(f"grid sample decode bf16 B={BATCH} T={MAX_LEN}: kernels {ms_dec:.3f} ms [{card}]")
+    log_profile(f"grid sample decode (B={BATCH}, bf16, {json.dumps(SAMPLE)})", card,
+                lambda: grid_sample_decode(packed, att, mem, u, MAX_LEN, 1, END_ID, 0, SAMPLE["top_k"], seed, **kw))
+
+
 def main() -> int:
     import torch
 
@@ -1277,10 +1658,20 @@ def main() -> int:
     # ---- phase 9: the grid beam and selective-beam paths end to end -----------
     phase_grid_beam_end_to_end(dev, card, gcfg, gmodel, tokenizer, stroke_canvases(rng, widths), kernels)
 
+    # ---- phase 10: sampling: the vocab-sample step alone, its draws -----------
+    phase_sample_step(dev, rng, card, kernels)
+    phase_sample_draws(dev, rng)
+
+    # ---- phase 11: the whole sampling decodes, broken samplers, early exit ----
+    phase_sample_decode({"vector": (model, ctx), "grid": (gmodel, gmem)}, card)
+
+    # ---- phase 12: the grid sampling path end to end --------------------------
+    phase_grid_sample_end_to_end(dev, card, gcfg, gmodel, tokenizer, gimages, kernels)
+
     # ---- report --------------------------------------------------------------
     log(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s (build included)")
     order = ("conv1_pool", "conv1_pool[bias=0]", "lstm_layer_step", "vocab_argmax_step", "attend_step",
-             "beam_step", f"attend_step[rows_per_mem={BEAM}]")
+             "beam_step", f"attend_step[rows_per_mem={BEAM}]", "vocab_sample_step")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kernels[n][k] for k in keys} for n in order]}))

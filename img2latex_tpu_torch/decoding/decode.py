@@ -1,8 +1,9 @@
-"""Greedy and beam decoding: the eager oracles, the beam search's pieces and
-host-side post-processing.
+"""Greedy, sampling and beam decoding: the eager oracles, the filters, the
+beam search's pieces and host-side post-processing.
 
-Counterpart of the greedy branch of ``img2latex_tpu/decoding/decode.py::greedy_sample_decode``,
-of ``signal_alpha``, ``select_uncertain``, ``topk_iterative``,
+Counterpart of ``img2latex_tpu/decoding/decode.py::greedy_sample_decode``,
+``filter_top_k``, ``filter_top_p``, ``_next_token_probs``,
+``signal_alpha``, ``select_uncertain``, ``topk_iterative``,
 ``beam_decode``, ``backtrack_and_select`` and ``trim_host``.  Greedy is the argmax of the
 logits (the lowest index wins ties); a row that emitted END emits PAD from
 the next step on, and the token fed back is the one emitted.
@@ -11,6 +12,17 @@ PyTorch, for either memory kind (the caller's step function closes over the
 memory and, for grid memory, its attention projection); the whole-decode
 kernels (:mod:`img2latex_tpu_torch.ops.decode_step`,
 :mod:`img2latex_tpu_torch.ops.grid_decode`) are held against it.
+
+Sampling (``DecodeConfig.sampling``: a positive temperature and ``top_k``
+or ``top_p`` above 0; a plain temperature still takes the argmax) draws
+from :func:`next_token_probs`: the softmax of ``logits / temperature``,
+top-k (every tie of the k-th largest kept), renormalized, then top-p (the
+smallest prefix of the descending probabilities, in a stable order, whose
+mass strictly before each token is at most p; the best token always
+stays), renormalized.  The eager oracle draws with a ``torch.Generator``,
+so its draws agree with the JAX package's only in distribution; the
+kernels' draws reproduce the TPU kernels' random stream
+(:func:`img2latex_tpu_torch.ops.decode_step.uniform_field`).
 
 Per-row confidence scores (``return_scores``) sum a per-step signal over the
 steps a row is live (END included, the PAD steps after it not), from the
@@ -78,9 +90,10 @@ def parse_signal(signal: str) -> Tuple[str, float]:
 
 @dataclass(frozen=True)
 class DecodeConfig:
-    """Greedy and beam decode settings (sampling comes in a later slice).
+    """Greedy, sampling and beam decode settings.
 
-    ``beam_size``: 0 for greedy, else the beam width K.  ``length_penalty``:
+    ``temperature``, ``top_k``, ``top_p``: the sampling settings
+    (:attr:`sampling`).  ``beam_size``: 0 for greedy, else the beam width K.  ``length_penalty``:
     the best beam is the one of largest ``score / length^length_penalty``
     (the plain score at 0).  ``selective_beam_frac``: with beam and
     0 < frac < 1, only the least confident rows of a greedy decode are
@@ -93,11 +106,56 @@ class DecodeConfig:
     start_id: int = 1
     end_id: int = 2
     pad_id: int = 0
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 0.0
     beam_size: int = 0
     length_penalty: float = 0.0
     selective_beam_frac: float = 0.0
     early_exit: bool = False
     selective_signal: str = "margin"
+
+    @property
+    def sampling(self) -> bool:
+        """Draw the tokens: a positive temperature and top-k or top-p on."""
+        return self.temperature > 0 and (self.top_k > 0 or self.top_p > 0.0)
+
+
+def filter_top_k(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """Zero the probabilities below the k-th largest (its ties stay); no
+    renormalization."""
+    k = min(k, probs.shape[-1])
+    kth = torch.topk(probs, k, dim=-1).values[..., -1:]
+    return torch.where(probs < kth, torch.zeros_like(probs), probs)
+
+
+def filter_top_p(probs: torch.Tensor, p: float) -> torch.Tensor:
+    """Nucleus filter: keep the smallest prefix of the probabilities in
+    descending order (equal ones in index order) whose mass before each
+    token is at most ``p``; the most probable token always stays."""
+    order = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+    cum = torch.cumsum(probs.gather(-1, order), dim=-1)
+    remove = torch.cat([torch.zeros_like(cum[..., :1], dtype=torch.bool), cum[..., :-1] > p], dim=-1)
+    return torch.where(remove.scatter(-1, order, remove), torch.zeros_like(probs), probs)
+
+
+def _renormalize(probs: torch.Tensor) -> torch.Tensor:
+    total = probs.sum(dim=-1, keepdim=True)
+    return torch.where(total > 0, probs / total.clamp_min(1e-38), probs)
+
+
+def next_token_probs(logits: torch.Tensor, cfg: DecodeConfig) -> torch.Tensor:
+    """(B, V) logits -> the (B, V) float32 probabilities a sampling step
+    draws from: temperature, top-k, renormalized, top-p, renormalized."""
+    logits = logits.float()
+    if cfg.temperature != 1.0 and cfg.temperature > 0:
+        logits = logits / cfg.temperature
+    probs = torch.softmax(logits, dim=-1)
+    if cfg.top_k > 0:
+        probs = _renormalize(filter_top_k(probs, cfg.top_k))
+    if cfg.top_p > 0.0:
+        probs = filter_top_p(probs, cfg.top_p)
+    return _renormalize(probs)
 
 
 def step_signal(logits: torch.Tensor, nxt: torch.Tensor, signal: str) -> torch.Tensor:
@@ -123,12 +181,17 @@ def step_signal(logits: torch.Tensor, nxt: torch.Tensor, signal: str) -> torch.T
 
 @torch.no_grad()
 def greedy_decode_eager(step_fn: StepFn, carry0, batch_size: int, cfg: DecodeConfig,
-                        return_scores: bool = False):
+                        return_scores: bool = False, generator: Optional[torch.Generator] = None):
     """Token ids (B, max_length) int32: generated tokens only (no START),
     END kept, PAD after it.  Runs on the device of the (h, c) ``carry0``.
-    With ``return_scores`` also returns the (B,) float32 sums of
-    ``cfg.selective_signal`` over the live steps."""
+    With ``cfg.sampling`` each token is drawn from :func:`next_token_probs`
+    with ``generator`` (one seeded with 0 on that device when not given),
+    else it is the argmax.  With ``return_scores`` also returns the (B,)
+    float32 sums of ``cfg.selective_signal`` over the live steps, from the
+    unfiltered logits."""
     device = carry0[0].device
+    if cfg.sampling and generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
     tokens = torch.full((batch_size,), cfg.start_id, dtype=torch.int32, device=device)
     finished = torch.zeros((batch_size,), dtype=torch.bool, device=device)
     score = torch.zeros((batch_size,), dtype=torch.float32, device=device)
@@ -138,7 +201,11 @@ def greedy_decode_eager(step_fn: StepFn, carry0, batch_size: int, cfg: DecodeCon
         if cfg.early_exit and bool(finished.all()):
             break  # the remaining steps would emit PAD
         logits, carry = step_fn(tokens, carry)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        if cfg.sampling:
+            probs = next_token_probs(logits, cfg)
+            nxt = torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+        else:
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         if return_scores:
             score += torch.where(finished, 0.0, step_signal(logits, nxt, cfg.selective_signal))
         tokens = torch.where(finished, torch.full_like(nxt, cfg.pad_id), nxt)

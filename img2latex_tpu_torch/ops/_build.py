@@ -48,9 +48,18 @@ SIGNATURES = {
     # h, w_h, v, u, mem, hw, ctx, B, S, E, H, A, rows_per_mem, dtype, stream
     "i2l_attend_step": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     # h, w_out, b_out, scores, finished, tokens, tok_hist, par_hist, h_src, h_dst, c_src, c_dst,
-    # L, B, K, H, Vp, t, end_id, pad_id, dtype, stream
-    "i2l_beam_step": [P] * 12 + [I] * 9 + [P],
+    # scratch, L, B, K, H, Vp, t, end_id, pad_id, dtype, stream
+    "i2l_beam_step": [P] * 13 + [I] * 9 + [P],
+    # B, K, H, Vp -> floats of device-memory scratch
+    "i2l_beam_step_scratch": [I] * 4,
+    # h, w_out, b_out, tokens, finished, out, scratch, t, T, B, H, Vp, end_id, pad_id, seed,
+    # top_k, top_p, batch_tile, dtype, stream
+    "i2l_vocab_sample_step": [P] * 7 + [I] * 9 + [F, I, I, P],
+    # B, H, Vp, top_p_on -> floats of device-memory scratch
+    "i2l_vocab_sample_step_scratch": [I] * 4,
 }
+# Return types other than int (a CUDA error code).
+RESTYPES = {"i2l_beam_step_scratch": ctypes.c_longlong, "i2l_vocab_sample_step_scratch": ctypes.c_longlong}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -130,7 +139,7 @@ def lib() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             handle.i2l_error_string.argtypes = [I]
             handle.i2l_error_string.restype = ctypes.c_char_p
             _lib = handle

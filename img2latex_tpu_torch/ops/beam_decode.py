@@ -52,12 +52,10 @@ from img2latex_tpu_torch.ops.decode_step import (
     lstm_layer_step_plain,
 )
 
-MAX_BEAM = 16  # the largest beam width beam_step takes (csrc/beam_step.cu: kMaxBeam)
-
 
 def _check_beam(K: int) -> None:
-    if not 1 <= K <= MAX_BEAM:
-        raise ValueError(f"beam width {K} outside 1..{MAX_BEAM}, the widths the beam_step kernel takes")
+    if K < 1:
+        raise ValueError(f"beam width {K} is not a positive number of beams")
 
 
 def beam_step_plain(h, w_out, b_out, scores, finished, tokens, tok_hist, par_hist, t: int, K: int,
@@ -137,10 +135,14 @@ def beam_step(h, w_out, b_out, scores, finished, tokens, tok_hist, par_hist, t: 
         raise ValueError(f"beam_step: step {t} outside 0..{T - 1} or pad_id {pad_id} outside the vocab")
     if h_dst.data_ptr() == h_src.data_ptr() or c_dst.data_ptr() == c_src.data_ptr():
         raise ValueError("beam_step: the carries are gathered out of place (dst must not alias src)")
-    err = _build.lib().i2l_beam_step(
+    lib = _build.lib()
+    n_scratch = lib.i2l_beam_step_scratch(N // K, K, H, Vp)  # 0 where shared memory holds a block's logits
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=h.device) if n_scratch else None
+    err = lib.i2l_beam_step(
         h.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), scores.data_ptr(), finished.data_ptr(),
         tokens.data_ptr(), tok_hist.data_ptr(), par_hist.data_ptr(), h_src.data_ptr(),
-        h_dst.data_ptr(), c_src.data_ptr(), c_dst.data_ptr(), L, N // K, K, H, Vp, t, end_id,
+        h_dst.data_ptr(), c_src.data_ptr(), c_dst.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), L, N // K, K, H, Vp, t, end_id,
         pad_id, _DTYPES[dtype], torch.cuda.current_stream(h.device).cuda_stream,
     )
     _build.check(err, "i2l_beam_step")
@@ -252,6 +254,7 @@ def beam_divergence(got: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor]) 
 
 
 def _vector(layer_step, step_fn, packed, ctx, K, cfg, **kwargs):
+    _check_beam(K)
     # the context is the same for the K beams of a sample: broadcast once
     ctx = ctx.to(packed["emb"].dtype).repeat_interleave(K, dim=0).contiguous()
     return _beam(layer_step, step_fn, packed, lambda h_top: ctx, ctx.shape[0] // K, K, ctx.device,

@@ -25,14 +25,26 @@ the card), stopping once every row has emitted END.  The same two launches
 make one greedy step, :func:`decode_step`, the counterpart of
 ``decode_step.py::fused_decode_step`` (``pl.pallas_call`` at line 176).
 
+Sampling replaces ``decode_step.py::pallas_full_sample_decode``
+(``pl.pallas_call`` at line 772): the same loop with
+:func:`vocab_sample_step` (``csrc/sample_step.cu``) in place of
+:func:`vocab_argmax_step`, on the vocab weights with the temperature folded
+in (:func:`fold_temperature`).  Its draws come from :func:`uniform_field`,
+the TPU kernels' counter-based hash, so the port draws the TPU kernels'
+tokens: the TPU kernel decodes tiles of ``batch_tile`` rows, and row r is
+row ``r % batch_tile`` of the tile seeded ``seed + r // batch_tile``; here
+one launch covers every row, and the tile only defines the random stream.
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version (``*_plain``) for CPU tensors.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from img2latex_tpu_torch.decoding.decode import NEG_INF, parse_signal, step_signal
@@ -41,6 +53,14 @@ from img2latex_tpu_torch.ops import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SIGNAL_CODES = {"logp": 1, "margin": 2, "entropy": 3, "margin_logp": 4}  # 0: no score
 EARLY_EXIT_EVERY = 8  # steps between the host's reads of the all-finished flag
+
+
+BATCH_TILE = 256  # pallas_full_sample_decode's default tile: the random stream's rows a seed
+# lowbias32 hash of the TPU sampling kernels (decode_step.py:698-714), uint32
+_MASK32 = 0xFFFFFFFF
+_HASH_T, _HASH_ROW, _HASH_COL = 0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35
+_HASH_MUL = (0x7FEB352D, 0x846CA68B)
+_U_SCALE, _U_SHIFT = float(np.float32(1.0 - 2e-7)), float(np.float32(1e-7))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -229,6 +249,199 @@ vocab_argmax_step.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Kernel 2c: vocab product + temperature, top-k, top-p and the draw
+# ---------------------------------------------------------------------------
+
+
+def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """(x * m) mod 2^32 for int64 tensors x in [0, 2^32), in 16-bit halves
+    so that no product leaves int64."""
+    return ((x & 0xFFFF) * m + ((((x >> 16) * m) & 0xFFFF) << 16)) & _MASK32
+
+
+def uniform_field(seed: int, t: int, rows: int, Vp: int, batch_tile: int = BATCH_TILE,
+                  device=None) -> torch.Tensor:
+    """The (rows, Vp) float32 uniforms of step ``t``: the TPU sampling
+    kernels' lowbias32 hash of (tile seed, t, row in tile, column) in uint32
+    arithmetic (carried in int64, masked to 32 bits; the TPU kernel runs it
+    in int32 with logical shifts), the top 24 bits times 2^-24, then times
+    1 - 2e-7 plus 1e-7 in float32.  Row r is row ``r % batch_tile`` of the
+    tile whose seed is ``seed + r // batch_tile`` (mod 2^32)."""
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    col = torch.arange(Vp, dtype=torch.int64, device=device)[None, :]
+    x = ((seed + r // batch_tile) & _MASK32) + ((t * _HASH_T) & _MASK32)
+    x = (x + _mul32(r % batch_tile, _HASH_ROW) + _mul32(col, _HASH_COL)) & _MASK32
+    x = x ^ (x >> 16)
+    x = _mul32(x, _HASH_MUL[0])
+    x = x ^ (x >> 15)
+    x = _mul32(x, _HASH_MUL[1])
+    x = x ^ (x >> 16)
+    u = (x >> 8).to(torch.float32) * (1.0 / (1 << 24))  # exact: 24 bits
+    scale = torch.tensor(_U_SCALE, dtype=torch.float32, device=device)
+    return u * scale + torch.tensor(_U_SHIFT, dtype=torch.float32, device=device)
+
+
+def fold_temperature(packed: Dict[str, Any], temperature: float) -> Dict[str, Any]:
+    """``packed`` with the temperature folded into the vocab projection, as
+    the TPU sampling kernels fold it: ``w_out`` times float32(1 / T) in
+    float32, rounded back to the compute type, and ``b_out`` times it; the
+    logits are not divided (in bf16 the rounding of the folded weights
+    decides the draws).  No fold at T in {0, 1}.  The folded copy is cached
+    in ``packed`` per temperature."""
+    if temperature in (0.0, 1.0):
+        return packed
+    cache = packed.setdefault("folded_by_temperature", {})
+    if temperature not in cache:
+        with torch.no_grad():
+            w_out = packed["w_out"]
+            inv_t = torch.tensor(1.0 / temperature, dtype=torch.float32, device=w_out.device)
+            folded = {k: v for k, v in packed.items() if k != "folded_by_temperature"}
+            folded["w_out"] = (w_out.float() * inv_t).to(w_out.dtype).contiguous()
+            folded["b_out"] = (packed["b_out"] * inv_t).contiguous()
+        cache[temperature] = folded
+    return cache[temperature]
+
+
+def sample_tokens(logits: torch.Tensor, u: torch.Tensor, top_k: int, top_p: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The TPU kernels' filtered draw (``decode_step.py::_sample_next_token``)
+    from (B, Vp) float32 logits (temperature folded in) and uniforms ``u``.
+
+    Returns the (B,) int32 tokens and two (B,) float32 distances to a
+    knife edge, inf where none applies: ``gap``, in logit units, the least
+    of the two best perturbed scores' difference, with top-k the k-th minus
+    the (k+1)-th logit, and with top-p the logit of the nucleus's last token
+    minus that of the first one left out (their order decides which stays);
+    ``mass_gap``, with top-p, the least distance of the masses before those
+    two tokens to ``top_p``.  Another version of the same draw whose logits
+    and masses differ by less than these draws the same token."""
+    B, Vp = logits.shape
+    inf = torch.full((B,), float("inf"), device=logits.device)
+    gap, mass_gap = inf, inf.clone()
+    keep = torch.ones_like(logits, dtype=torch.bool)
+    if 0 < top_k < Vp:
+        top = torch.topk(logits, top_k + 1, dim=-1).values
+        keep = logits >= top[:, top_k - 1 : top_k]
+        gap = top[:, top_k - 1] - top[:, top_k]
+    if top_p > 0.0:
+        m = logits.max(dim=-1, keepdim=True).values
+        e = torch.exp(logits - m)
+        probs = e / e.sum(dim=-1, keepdim=True)
+        if top_k > 0:  # renormalized between the filters
+            probs = torch.where(keep, probs, torch.zeros_like(probs))
+            probs = probs / probs.sum(dim=-1, keepdim=True).clamp_min(1e-38)
+        srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+        # The nucleus as the TPU kernel measures it: the mass before each
+        # token summed sequentially in float32, in the sorted order.  Past n
+        # every row's mass is above p (float32 sums of <= Vp terms stay
+        # within 1e-4 of the float64 ones).
+        p32 = float(np.float32(top_p))
+        before64 = torch.cumsum(srt.double(), dim=-1) - srt.double()
+        n = max(1, min(Vp, int((before64 <= top_p + 1e-4).sum(dim=-1).max())))
+        before = torch.empty((B, n + 1), dtype=torch.float32, device=logits.device)
+        cum = torch.zeros((B,), dtype=torch.float32, device=logits.device)
+        for j in range(n):
+            before[:, j] = cum
+            cum = torch.where(cum <= p32, cum + srt[:, j], cum)
+        before[:, n] = cum
+        kept_sorted = before[:, :n] <= p32
+        count = kept_sorted.sum(dim=-1, keepdim=True)  # >= 1: the first always stays
+        nucleus = torch.zeros_like(keep).scatter(1, order[:, :n], kept_sorted)
+        keep = nucleus & (probs > 0)
+        score = torch.where(keep, torch.log(probs.clamp_min(1e-38)), float("-inf"))
+        mass_gap = p32 - before.gather(1, count - 1)[:, 0]
+        nxt_i = count.clamp_max(Vp - 1)  # the first one left out, where there is one
+        dropped = (count[:, 0] < Vp) & (srt.gather(1, nxt_i)[:, 0] > 0)
+        mass_gap = torch.where(dropped, torch.minimum(mass_gap, before.gather(1, count.clamp_max(n))[:, 0] - p32),
+                               mass_gap)
+        lsrt = logits.gather(1, order)
+        gap = torch.where(dropped, torch.minimum(gap, lsrt.gather(1, count - 1)[:, 0] - lsrt.gather(1, nxt_i)[:, 0]),
+                          gap)
+    else:
+        score = torch.where(keep, logits, float("-inf"))
+    pert = score + (-torch.log(-torch.log(u)))
+    top2 = torch.topk(pert, 2, dim=-1).values
+    gap = torch.minimum(gap, top2[:, 0] - top2[:, 1])
+    return torch.argmax(pert, dim=-1).to(torch.int32), gap, mass_gap
+
+
+def vocab_sample_step_plain(h, w_out, b_out, tokens, finished, out, t: int, end_id: int,
+                            pad_id: int, seed: int = 0, top_k: int = 0, top_p: float = 0.0,
+                            batch_tile: int = BATCH_TILE, gaps: Optional[torch.Tensor] = None,
+                            mass_gaps: Optional[torch.Tensor] = None) -> None:
+    """Plain version of :func:`vocab_sample_step`.  ``gaps`` and
+    ``mass_gaps`` (B, T) float32, when given, receive at column ``t`` the
+    step's distances to a knife edge (:func:`sample_tokens`)."""
+    logits = h.float() @ w_out.float() + b_out
+    u = uniform_field(seed, t, h.shape[0], logits.shape[1], batch_tile, device=h.device)
+    nxt, gap, mass_gap = sample_tokens(logits, u, top_k, top_p)
+    if gaps is not None:
+        gaps[:, t] = gap
+    if mass_gaps is not None:
+        mass_gaps[:, t] = mass_gap
+    if finished is not None:
+        nxt = torch.where(finished.bool(), torch.full_like(nxt, pad_id), nxt)
+        finished.copy_(torch.maximum(finished, (nxt == end_id).to(torch.int32)))
+    tokens.copy_(nxt)
+    if out is not None:
+        out[:, t] = nxt
+
+
+def vocab_sample_step(h, w_out, b_out, tokens, finished, out, t: int, end_id: int, pad_id: int,
+                      seed: int = 0, top_k: int = 0, top_p: float = 0.0,
+                      batch_tile: int = BATCH_TILE) -> None:
+    """One sampling step: ``l = h @ w_out + b_out`` per row (float32, the
+    temperature folded into ``w_out`` and ``b_out``), top-k (``top_k`` > 0:
+    every logit tied with the k-th largest stays), top-p (``top_p`` > 0: the
+    nucleus of the probabilities, renormalized after top-k) and a Gumbel-max
+    draw with :func:`uniform_field` of (``seed``, ``t``, ``batch_tile``); one
+    of the filters must be on.  ``seed`` is an int32 (taken mod 2^32).
+    ``tokens``, ``finished`` and ``out`` as in :func:`vocab_argmax_step`."""
+    if top_k < 0 or not top_p >= 0.0 or (top_k == 0 and top_p == 0.0) or batch_tile < 1:
+        raise ValueError(f"vocab_sample_step: top_k {top_k}, top_p {top_p}, batch_tile {batch_tile}: "
+                         "one filter must be on and the tile positive")
+    if h.device.type == "cpu":
+        return vocab_sample_step_plain(h, w_out, b_out, tokens, finished, out, t, end_id, pad_id,
+                                       seed, top_k, top_p, batch_tile)
+    if h.device.type != "cuda":
+        raise ValueError(f"vocab_sample_step: unsupported device {h.device}")
+    B, H = h.shape
+    Vp = w_out.shape[1]
+    if h.dtype not in _DTYPES or w_out.dtype != h.dtype:
+        raise TypeError("vocab_sample_step: h and w_out must share a float32 or bfloat16 dtype")
+    if tuple(w_out.shape) != (H, Vp) or tuple(b_out.shape) != (Vp,) or b_out.dtype != torch.float32:
+        raise ValueError("vocab_sample_step: w_out must be (H, Vp), b_out float32 (Vp,)")
+    if Vp % 128 or w_out.data_ptr() % 16:
+        raise ValueError("vocab_sample_step: w_out must be 16-byte aligned with Vp a multiple of 128")
+    ints = [tokens] + [x for x in (finished, out) if x is not None]
+    for x in [h, w_out, b_out] + ints:
+        if not x.is_contiguous() or x.device != h.device:
+            raise ValueError("vocab_sample_step: operands must be contiguous and on one device")
+    for x in ints:
+        if x.dtype != torch.int32 or x.shape[0] != B:
+            raise ValueError("vocab_sample_step: tokens/finished/out must be int32 with B rows")
+    T = 1 if out is None else out.shape[1]
+    if not 0 <= t < T:
+        raise ValueError(f"vocab_sample_step: step {t} outside 0..{T - 1}")
+    lib = _build.lib()
+    n_scratch = lib.i2l_vocab_sample_step_scratch(B, H, Vp, int(top_p > 0.0))
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=h.device) if n_scratch else None
+    seed32 = (int(seed) + (1 << 31)) % (1 << 32) - (1 << 31)  # the uint32 bits as a C int
+    err = lib.i2l_vocab_sample_step(
+        h.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), tokens.data_ptr(),
+        None if finished is None else finished.data_ptr(), None if out is None else out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), t, T, B, H, Vp, end_id, pad_id, seed32,
+        int(top_k), float(top_p), int(batch_tile), _DTYPES[h.dtype],
+        torch.cuda.current_stream(h.device).cuda_stream,
+    )
+    _build.check(err, "i2l_vocab_sample_step")
+    vocab_sample_step.launches += 1
+
+
+vocab_sample_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # The decode loops
 # ---------------------------------------------------------------------------
 
@@ -308,6 +521,46 @@ def greedy_decode_plain(packed: Dict[str, Any], ctx: torch.Tensor, max_length: i
     logits of every step."""
     return _vector(lstm_layer_step_plain, vocab_argmax_step_plain, packed, ctx, max_length,
                    start_id, end_id, pad_id, early_exit, return_scores, signal, return_margins)
+
+
+def sampler(vocab_step, top_k: int, seed: int, top_p: float, batch_tile: int, **kwargs):
+    """``vocab_step`` (:func:`vocab_sample_step` or its plain version) with
+    the sampling settings bound, for the decode loops."""
+    return functools.partial(vocab_step, seed=int(seed), top_k=int(top_k), top_p=float(top_p),
+                             batch_tile=int(batch_tile), **kwargs)
+
+
+def sample_decode(packed: Dict[str, Any], ctx: torch.Tensor, max_length: int, start_id: int,
+                  end_id: int, pad_id: int, top_k: int, seed: int, temperature: float = 1.0,
+                  top_p: float = 0.0, batch_tile: int = BATCH_TILE, early_exit: bool = False):
+    """Sampling decode of all rows (``pallas_full_sample_decode``): ctx
+    (B, E) -> tokens (B, max_length) int32, END kept and PAD after it,
+    drawn with temperature, top-k and top-p (:func:`vocab_sample_step`)
+    from the random stream of ``seed`` and ``batch_tile``.  CUDA tensors run
+    the kernels; CPU tensors run their plain versions."""
+    return _vector(lstm_layer_step, sampler(vocab_sample_step, top_k, seed, top_p, batch_tile),
+                   fold_temperature(packed, temperature), ctx, max_length, start_id, end_id,
+                   pad_id, early_exit)
+
+
+def sample_decode_plain(packed: Dict[str, Any], ctx: torch.Tensor, max_length: int, start_id: int,
+                        end_id: int, pad_id: int, top_k: int, seed: int, temperature: float = 1.0,
+                        top_p: float = 0.0, batch_tile: int = BATCH_TILE, early_exit: bool = False,
+                        return_gaps: bool = False):
+    """:func:`sample_decode` through the plain versions on any device.  With
+    ``return_gaps`` also the (B, T) float32 ``gaps`` and ``mass_gaps`` of
+    every step (:func:`sample_tokens`)."""
+    gaps = _gaps(ctx.shape[0], max_length, ctx.device) if return_gaps else {}
+    tokens = _vector(lstm_layer_step_plain,
+                     sampler(vocab_sample_step_plain, top_k, seed, top_p, batch_tile, **gaps),
+                     fold_temperature(packed, temperature), ctx, max_length, start_id, end_id,
+                     pad_id, early_exit)
+    return (tokens, gaps["gaps"], gaps["mass_gaps"]) if return_gaps else tokens
+
+
+def _gaps(B: int, T: int, device) -> Dict[str, torch.Tensor]:
+    """inf-filled (B, T) float32 gap records (the steps not run keep inf)."""
+    return {k: torch.full((B, T), float("inf"), device=device) for k in ("gaps", "mass_gaps")}
 
 
 def _step(layer_step, vocab_step, packed, tokens, ctx, h, c):

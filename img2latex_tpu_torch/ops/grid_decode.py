@@ -27,7 +27,15 @@ they are 65.5 MB in bf16, more than the 50 MB L2.
   that sample's row of U and the memory, which stay (B, S, .) and are never
   copied K times, as in the TPU kernel.  The TPU kernel's tile choice
   (``_auto_tile_beam`` and the VMEM budget, lines 488-519) has no
-  counterpart here: the card's kernels take the whole batch at once.
+  counterpart here: the card's kernels take the whole batch at once;
+* :func:`grid_sample_decode` / :func:`grid_sample_decode_plain` - the
+  sampling decode (``::pallas_full_grid_sample_decode``, ``pl.pallas_call``
+  at line 665): the greedy loop with ``decode_step.vocab_sample_step``.
+  The TPU kernel's batch tile defines its random stream (row r is row
+  ``r % tile`` of the tile seeded ``seed + r // tile``), so its default,
+  :func:`auto_tile` (``_auto_tile``, lines 243-284), is ported as a shape
+  function with the fixed 96 MiB budget; the launches still take the whole
+  batch at once.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors.
@@ -45,11 +53,19 @@ from img2latex_tpu_torch.ops.beam_decode import _beam, beam_step, beam_step_plai
 from img2latex_tpu_torch.ops.decode_step import (
     _DTYPES,
     _decode,
+    _gaps,
+    _round_up,
+    fold_temperature,
     lstm_layer_step,
     lstm_layer_step_plain,
+    sampler,
     vocab_argmax_step,
     vocab_argmax_step_plain,
+    vocab_sample_step,
+    vocab_sample_step_plain,
 )
+
+VMEM_BUDGET_BYTES = 96 * 1024 * 1024  # _vmem_budget_bytes' default
 
 
 def pack_attention_weights(decoder, dtype: torch.dtype) -> Dict[str, Any]:
@@ -211,3 +227,64 @@ def grid_beam_decode_plain(packed: Dict[str, Any], att: Dict[str, Any], memory: 
     its ``trace`` also receives the gaps of every step."""
     return _grid_beam(lstm_layer_step_plain, beam_step_plain, attend_step_plain, packed, att,
                       memory, u, beam_size, cfg, trace=trace)
+
+
+def auto_tile(packed: Dict[str, Any], att: Dict[str, Any], S: int, batch: int = 0) -> int:
+    """The TPU grid kernels' default batch tile (``grid_decode.py::_auto_tile``
+    with its default 96 MiB budget): the largest of 256, 128, ..., 8 and
+    the batch rounded up to 8 (capped at it) whose VMEM estimate
+    (``grid_vmem_bytes_estimate``: every weight, the tile's memory and U,
+    the attention's temporaries and the carries) fits the budget.  Here it
+    only defines the sampling decode's random stream."""
+    itemsize = packed["emb"].element_size()
+    weights = sum(v.numel() * v.element_size() for src in (packed, att) for v in src.values()
+                  if isinstance(v, torch.Tensor))
+    E, A = att["mem_dim"], att["attn_dim"]
+    L, H, Vp = packed["num_layers"], packed["hidden_dim"], packed["vocab_padded"]
+
+    def estimate(tile: int) -> int:
+        return (weights + tile * S * (E + A) * itemsize + tile * S * A * (itemsize + 4)
+                + tile * (4 * L * H + 4 * H + 2 * Vp) * max(itemsize, 4))
+
+    cap = max(8, _round_up(batch, 8)) if batch > 0 else 256
+    for tile in sorted({256, 128, 64, 32, 16, 8, cap}, reverse=True):
+        if tile <= cap and estimate(tile) <= VMEM_BUDGET_BYTES:
+            return tile
+    return 8
+
+
+def _grid_sample(layer_step, vocab_step, attend, packed, att, memory, u, max_length, start_id,
+                 end_id, pad_id, top_k, seed, temperature, top_p, batch_tile, early_exit, **kwargs):
+    if batch_tile <= 0:
+        batch_tile = auto_tile(packed, att, memory.shape[1], batch=memory.shape[0])
+    return _grid(layer_step, sampler(vocab_step, top_k, seed, top_p, batch_tile, **kwargs), attend,
+                 fold_temperature(packed, temperature), att, memory, u, max_length, start_id,
+                 end_id, pad_id, early_exit)
+
+
+def grid_sample_decode(packed: Dict[str, Any], att: Dict[str, Any], memory: torch.Tensor,
+                       u: torch.Tensor, max_length: int, start_id: int, end_id: int, pad_id: int,
+                       top_k: int, seed: int, temperature: float = 1.0, top_p: float = 0.0,
+                       batch_tile: int = 0, early_exit: bool = False):
+    """Sampling decode over grid memory (``pallas_full_grid_sample_decode``):
+    memory (B, S, E) and its projection ``u`` -> tokens (B, max_length)
+    int32, END kept and PAD after it, drawn as in
+    ``decode_step.sample_decode``; ``batch_tile`` 0 takes :func:`auto_tile`.
+    CUDA tensors run the kernels; CPU tensors run their plain versions."""
+    return _grid_sample(lstm_layer_step, vocab_sample_step, attend_step, packed, att, memory, u,
+                        max_length, start_id, end_id, pad_id, top_k, seed, temperature, top_p,
+                        batch_tile, early_exit)
+
+
+def grid_sample_decode_plain(packed: Dict[str, Any], att: Dict[str, Any], memory: torch.Tensor,
+                             u: torch.Tensor, max_length: int, start_id: int, end_id: int,
+                             pad_id: int, top_k: int, seed: int, temperature: float = 1.0,
+                             top_p: float = 0.0, batch_tile: int = 0, early_exit: bool = False,
+                             return_gaps: bool = False):
+    """:func:`grid_sample_decode` through the plain versions on any device;
+    ``return_gaps`` as in ``decode_step.sample_decode_plain``."""
+    gaps = _gaps(memory.shape[0], max_length, memory.device) if return_gaps else {}
+    tokens = _grid_sample(lstm_layer_step_plain, vocab_sample_step_plain, attend_step_plain, packed,
+                          att, memory, u, max_length, start_id, end_id, pad_id, top_k, seed,
+                          temperature, top_p, batch_tile, early_exit, **gaps)
+    return (tokens, gaps["gaps"], gaps["mass_gaps"]) if return_gaps else tokens

@@ -18,10 +18,12 @@ penalty is above 0).  With ``0 < selective_beam_frac < 1`` the batch is
 decoded greedily with per-row scores of ``selective_signal``, and only the
 ``ceil(frac * batch)`` rows of least mean score are beam-decoded and their
 tokens put in place of the greedy ones; the zero canvases that pad a short
-last batch compete for those rows, as in the JAX package.  Sampling
-(``top_k`` or ``top_p`` above 0 at a positive temperature) is not ported
-yet and raises ``NotImplementedError`` (with beam on, the JAX package's
-beam ignores those settings, and so does this one).  ``from_checkpoint`` is not
+last batch compete for those rows, as in the JAX package.  With sampling
+on (``top_k`` or ``top_p`` above 0 at a positive temperature) and no beam,
+the batch is drawn by the vector or grid sampling decode (the same kernels
+with the vocab-sample kernel in place of the argmax) from the kernel seed
+of the batch (:func:`batch_seed`); with beam on, the sampling settings are
+ignored, as the JAX package's beam ignores them.  ``from_checkpoint`` is not
 ported yet (the JAX package's checkpoints are Orbax directories); load
 weights with :func:`img2latex_tpu_torch.bridge.load_flax_params` or
 ``model.load_state_dict``.
@@ -29,6 +31,7 @@ weights with :func:`img2latex_tpu_torch.bridge.load_flax_params` or
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -41,15 +44,26 @@ from img2latex_tpu_torch.data.transforms import prepare_image_u8
 from img2latex_tpu_torch.decoding.decode import DecodeConfig, select_uncertain, trim_host
 from img2latex_tpu_torch.models.seq2seq import Seq2SeqModel
 from img2latex_tpu_torch.ops.beam_decode import beam_decode
-from img2latex_tpu_torch.ops.decode_step import greedy_decode, pack_decoder_weights
+from img2latex_tpu_torch.ops.decode_step import greedy_decode, pack_decoder_weights, sample_decode
 from img2latex_tpu_torch.ops.grid_decode import (
     grid_beam_decode,
     grid_greedy_decode,
     grid_memory_proj,
+    grid_sample_decode,
     pack_attention_weights,
 )
 from img2latex_tpu_torch.ops.preprocess import normalize_images
 from img2latex_tpu_torch.utils.device import resolve_device, torch_dtype
+
+
+def batch_seed(seed: int, index: int) -> int:
+    """The int32 kernel seed of the ``index``-th batch of a ``predict_batch``
+    call with ``seed``: the first 32 bits of numpy's ``SeedSequence([seed,
+    index])`` as a signed int.  (The JAX package takes ``jax.random.bits`` of
+    the index-th split of ``PRNGKey(seed)``, which cannot be had without JAX:
+    the two draw different streams from the same seed.)"""
+    bits = np.random.SeedSequence([seed, index]).generate_state(1, dtype=np.uint32)[0]
+    return int(bits.astype(np.int32))
 
 
 class Predictor:
@@ -82,37 +96,40 @@ class Predictor:
                       top_p: Optional[float] = None, length_penalty: Optional[float] = None,
                       early_exit: Optional[bool] = None,
                       selective_beam_frac: Optional[float] = None) -> DecodeConfig:
-        """The decode settings of ``cfg.inference`` with the given overrides.
-        Raises ``NotImplementedError`` where they would sample (not ported)."""
+        """The decode settings of ``cfg.inference`` with the given overrides."""
         icfg = self.cfg.inference
 
         def pick(value, default):
             return default if value is None else value
 
         beam = int(pick(beam_size, icfg.beam_size))
-        temp = pick(temperature, icfg.temperature)
-        sampling = temp > 0 and (pick(top_k, icfg.top_k) > 0 or pick(top_p, icfg.top_p) > 0.0)
-        if sampling and beam == 0:
-            raise NotImplementedError("sampling (top_k or top_p > 0) is not ported yet")
         tok = self.tokenizer
         frac = float(pick(selective_beam_frac, icfg.selective_beam_frac))
-        return DecodeConfig(
+        dcfg = DecodeConfig(
             max_length=int(pick(max_length, icfg.max_length)),
             start_id=tok.start_token_id, end_id=tok.end_token_id, pad_id=tok.pad_token_id,
+            temperature=float(pick(temperature, icfg.temperature)),
+            top_k=int(pick(top_k, icfg.top_k)), top_p=float(pick(top_p, icfg.top_p)),
             beam_size=beam,
             length_penalty=float(pick(length_penalty, icfg.length_penalty)),
-            # the JAX package's beam runs over every row when it would sample
-            selective_beam_frac=0.0 if sampling else frac,
+            selective_beam_frac=frac,
             early_exit=bool(pick(early_exit, icfg.early_exit)),
             selective_signal=icfg.selective_signal,
         )
+        if dcfg.sampling:  # the JAX package's beam runs over every row when it would sample
+            dcfg = dataclasses.replace(dcfg, selective_beam_frac=0.0)
+        return dcfg
 
     @torch.no_grad()
-    def decode_canvases(self, canvases_u8: np.ndarray, dcfg: Optional[DecodeConfig] = None) -> np.ndarray:
+    def decode_canvases(self, canvases_u8: np.ndarray, dcfg: Optional[DecodeConfig] = None,
+                        seed: int = 0) -> np.ndarray:
         """uint8 (B, H, W, C) canvases -> token ids (B, dcfg.max_length) int32
-        on the host, with ``dcfg`` (default :meth:`decode_config`)."""
+        on the host, with ``dcfg`` (default :meth:`decode_config`); a
+        sampling decode draws with the int32 kernel ``seed``."""
         if dcfg is None:
             dcfg = self.decode_config()
+        sample = dict(top_k=dcfg.top_k, seed=int(seed),
+                      temperature=dcfg.temperature, top_p=dcfg.top_p, early_exit=dcfg.early_exit)
         icfg = self.cfg.preprocessing
         x = torch.from_numpy(np.ascontiguousarray(canvases_u8)).to(self.device)
         x = normalize_images(x, icfg.normalization_mean, icfg.normalization_std, self.dtype)
@@ -126,6 +143,9 @@ class Predictor:
             def greedy(**kw):
                 return grid_greedy_decode(packed, att, memory, u, *args, early_exit=dcfg.early_exit, **kw)
 
+            def draw():
+                return grid_sample_decode(packed, att, memory, u, *args, **sample)
+
             def beam(idx=None):
                 mem, uu = (memory, u) if idx is None else (memory[idx], u[idx])
                 return grid_beam_decode(packed, att, mem, uu, dcfg.beam_size, dcfg)[0]
@@ -135,11 +155,16 @@ class Predictor:
             def greedy(**kw):
                 return greedy_decode(packed, ctx, *args, early_exit=dcfg.early_exit, **kw)
 
+            def draw():
+                return sample_decode(packed, ctx, *args, **sample)
+
             def beam(idx=None):
                 return beam_decode(packed, ctx if idx is None else ctx[idx], dcfg.beam_size, dcfg)[0]
 
         frac = dcfg.selective_beam_frac
-        if dcfg.beam_size == 0:
+        if dcfg.beam_size == 0 and dcfg.sampling:
+            tokens = draw()
+        elif dcfg.beam_size == 0:
             tokens = greedy()
         elif 0.0 < frac < 1.0:
             # greedy over every row, beam over the least confident ones
@@ -155,12 +180,13 @@ class Predictor:
                       max_length: Optional[int] = None, temperature: Optional[float] = None,
                       top_k: Optional[int] = None, top_p: Optional[float] = None,
                       length_penalty: Optional[float] = None, early_exit: Optional[bool] = None,
-                      batch_size: Optional[int] = None, return_ids: bool = False,
+                      batch_size: Optional[int] = None, seed: int = 0, return_ids: bool = False,
                       selective_beam_frac: Optional[float] = None) -> List[Any]:
         """Decode ``images`` (paths, PIL images or arrays) in fixed batches of
         ``batch_size``; returns LaTeX strings, or id lists with ``return_ids``.
         The decode settings are ``cfg.inference``'s, with the keyword
-        overrides of the JAX package's ``predict_batch``."""
+        overrides of the JAX package's ``predict_batch``; a sampling decode
+        draws batch i with the kernel seed ``batch_seed(seed, i)``."""
         dcfg = self.decode_config(beam_size=beam_size, max_length=max_length,
                                   temperature=temperature, top_k=top_k, top_p=top_p,
                                   length_penalty=length_penalty, early_exit=early_exit,
@@ -175,7 +201,7 @@ class Predictor:
             buf = np.zeros((B, h, w, c), dtype=np.uint8)
             for j, img in enumerate(chunk):
                 buf[j] = prepare_image_u8(img, h, w, c, pad)
-            tokens = self.decode_canvases(buf, dcfg=dcfg)[: len(chunk)]
+            tokens = self.decode_canvases(buf, dcfg=dcfg, seed=batch_seed(seed, i // B))[: len(chunk)]
             ids = trim_host(tokens, tok.end_token_id, tok.pad_token_id, start_id=tok.start_token_id)
             results.extend(ids if return_ids else (tok.decode(r) for r in ids))
         return results

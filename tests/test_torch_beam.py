@@ -235,8 +235,15 @@ class TestBeamDecode:
         assert div["gap"][1] == ref["gaps"][1, 5].min() and torch.isinf(div["gap"][0])
 
     def test_beam_width_limit(self, ending, kind):
-        with pytest.raises(ValueError, match=str(bd.MAX_BEAM)):
-            _port_beam(ending, kind, bd.MAX_BEAM + 1, _cfgs(bd.MAX_BEAM + 1)[0], fn="wrapper")
+        """No width limit: K = 20 (beyond the 16 rows of a kernel block)
+        gives the JAX beam kernel's tokens; K = 0 raises."""
+        cfg, jcfg = _cfgs(20, length_penalty=0.7)
+        ref_tokens, ref_scores = _jax_kernel(ending, kind, 20, jcfg)
+        tokens, scores = _port_beam(ending, kind, 20, cfg, fn="wrapper")
+        np.testing.assert_array_equal(tokens, ref_tokens)
+        np.testing.assert_allclose(scores, ref_scores, atol=SCORE_ATOL)
+        with pytest.raises(ValueError):
+            _port_beam(ending, kind, 0, _cfgs(1)[0], fn="wrapper")
 
 
 @pytest.fixture(scope="module")

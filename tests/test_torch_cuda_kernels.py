@@ -4,8 +4,11 @@ Ragged shapes the main path does not reach (batches and widths that are not
 multiples of the kernels' tiles, one row, exact argmax ties, attention
 widths A != H, slot counts S that are not multiples of 8, early exit and
 the score signals; the beam step with exact ties across beams, every row
-finished, one beam, a ragged last block of samples; attention over memories
-shared by several rows) at small sizes.
+finished, one beam, a ragged last block of samples, beams wider than a
+block's 16 rows and a sample whose logits spill to device memory; attention
+over memories shared by several rows; the sampling step with top-k at or
+beyond the vocab, all mass on one token, finished rows, a vocab whose
+logits spill to device memory, and whole sampling decodes) at small sizes.
 Marked ``cuda``: without a CUDA device every test skips.  Imports no JAX, so
 it runs on the card's machine with
 
@@ -330,11 +333,14 @@ def _run_beam_step(step, op, K, T=4, t=1, end_id=2, pad_id=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,K,H,Vp,L", [(1, 1, 40, 128, 1), (7, 3, 33, 128, 2), (5, 8, 64, 256, 2),
-                                        (3, 16, 40, 128, 1), (11, 5, 96, 512, 2), (17, 1, 48, 256, 2)])
+                                        (3, 16, 40, 128, 1), (11, 5, 96, 512, 2), (17, 1, 48, 256, 2),
+                                        (3, 20, 40, 128, 1), (2, 20, 64, 512, 2), (2, 120, 40, 512, 1)])
 @pytest.mark.parametrize("case", ["random", "tie", "all_finished"])
 def test_beam_step(dev, dtype, B, K, H, Vp, L, case):
-    """Ragged last blocks (B not a multiple of 16 // K), K = 1 and the
-    largest K, exact ties across beams (the lowest beam must win), every
+    """Ragged last blocks (B not a multiple of 16 // K), K = 1, K = 16 (a
+    block's rows), K = 20 (a block a sample, its product in two calls and a
+    block-wide selection), K = 120 at Vp = 512 (the logits in device-memory
+    scratch), exact ties across beams (the lowest beam must win), every
     row finished (PAD at +0, identity parents, scores unchanged)."""
     op = _beam_operands(dev, dtype, B, K, H, Vp, L, B * K + H, tie=case == "tie",
                         all_finished=case == "all_finished")
@@ -359,8 +365,8 @@ def test_beam_step(dev, dtype, B, K, H, Vp, L, case):
 
 def test_beam_step_rejects_bad_input(dev):
     op = _beam_operands(dev, torch.float32, 2, 3, 16, 128, 1, 0)
-    with pytest.raises(ValueError, match=str(bd.MAX_BEAM)):
-        _run_beam_step(bd.beam_step, op, bd.MAX_BEAM + 1)
+    with pytest.raises(ValueError):
+        _run_beam_step(bd.beam_step, op, 0)
     with pytest.raises(ValueError):
         _run_beam_step(bd.beam_step, op, 4)  # 6 rows are not samples of 4 beams
     with pytest.raises(ValueError):
@@ -438,3 +444,131 @@ def test_beam_decode_ragged(dev, kind, B, K):
     torch.testing.assert_close(scores[same], ref_scores[same], atol=1e-4, rtol=1e-5)
     early, _ = run(kernel, DecodeConfig(max_length=T, beam_size=K, length_penalty=0.5, early_exit=True))
     assert torch.equal(early, tokens)
+
+
+def _sample_operands(dev, dtype, B, H, Vp, V, seed):
+    rng = np.random.default_rng(seed)
+    h = _t(rng.uniform(-1, 1, (B, H)), dev, dtype)
+    w = np.zeros((H, Vp), np.float32)
+    w[:, :V] = rng.normal(size=(H, V)) * 2 / np.sqrt(H)
+    w[:, 5] = w[:, 9]  # exact ties of columns 5 and 9
+    b = np.full(Vp, -1e30, np.float32)
+    b[:V] = rng.normal(size=V) * 0.3
+    h[0] = 0  # row 0: the bias alone; all its mass on column 3
+    b[3] = 50.0
+    return h, _t(w, dev, dtype), _t(b, dev)
+
+
+def _run_sample_step(step, h, w_out, b_out, fin0, T=5, t=2, **kw):
+    B = h.shape[0]
+    tok = torch.full((B,), -1, dtype=torch.int32, device=h.device)
+    fin = fin0.clone()
+    out = torch.full((B, T), -1, dtype=torch.int32, device=h.device)
+    step(h, w_out, b_out, tok, fin, out, t, 2, 0, **kw)
+    return tok, fin, out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Vp,V", [(1, 40, 128, 100), (37, 64, 256, 250), (70, 48, 384, 300),
+                                      (19, 32, 4096, 4000)])
+@pytest.mark.parametrize("kw", [dict(top_k=5), dict(top_p=0.9), dict(top_k=10, top_p=0.8),
+                                dict(top_k=1), dict(top_k=1000), dict(top_k=1000, top_p=1.0),
+                                dict(top_p=0.3, batch_tile=7)])
+def test_vocab_sample_step(dev, dtype, B, H, Vp, V, kw):
+    """Ragged B, Vp not a power of two (384), a vocab whose logits and keys
+    spill to device memory (4096), top_k >= Vp, top_p = 1, a row with all
+    its mass on one token, finished rows, several tiles of the random
+    stream: the kernel draws the plain version's tokens except where the
+    plain version is within a rounding step of a knife edge."""
+    h, w_out, b_out = _sample_operands(dev, dtype, B, H, Vp, V, B + Vp)
+    fin0 = torch.from_numpy((np.arange(B) % 5 == 4).astype(np.int32)).to(dev)
+    kw = dict(seed=-7, **kw)
+    tk, fk, ok = _run_sample_step(ds.vocab_sample_step, h, w_out, b_out, fin0, **kw)
+    gaps, mass = torch.full((B, 5), float("inf"), device=dev), torch.full((B, 5), float("inf"), device=dev)
+    tp, fp, op = _run_sample_step(ds.vocab_sample_step_plain, h, w_out, b_out, fin0, gaps=gaps, mass_gaps=mass,
+                                  **kw)
+    edge = (gaps[:, 2] <= 1e-4) | (mass[:, 2] <= 1e-5)
+    assert ((tk == tp) | edge).all() and int((tk != tp).sum()) <= max(1, B // 20)
+    assert torch.equal(fk, torch.maximum(fin0, (tk == 2).int())) and torch.equal(ok[:, 2], tk)
+    assert (ok[:, [0, 1, 3, 4]] == -1).all()
+    assert (tk[fin0 == 1] == 0).all() and (tk[fin0 == 0] < V).all()
+    assert tk[0] == 3  # all the mass on one token
+
+
+def test_vocab_sample_step_rejects_bad_input(dev):
+    h, w_out, b_out = _sample_operands(dev, torch.float32, 4, 16, 128, 100, 0)
+    fin = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        _run_sample_step(ds.vocab_sample_step, h, w_out, b_out, fin, top_k=0, top_p=0.0)
+    with pytest.raises(TypeError):
+        _run_sample_step(ds.vocab_sample_step, h, w_out.to(torch.bfloat16), b_out, fin, top_k=3)
+    with pytest.raises(ValueError):
+        _run_sample_step(ds.vocab_sample_step, h, w_out[:, :100].contiguous(), b_out[:100].contiguous(), fin,
+                         top_k=3)
+
+
+def test_vocab_sample_step_draws_follow_the_probabilities(dev):
+    """One row's logits repeated over 4096 rows (their own uniforms): the
+    kernel's draws stay inside the support of ``next_token_probs`` and
+    follow it (chi-square p >= 1e-3)."""
+    from scipy import stats
+
+    from img2latex_tpu_torch.decoding.decode import next_token_probs
+
+    rng = np.random.default_rng(1)
+    H, Vp, V, n = 32, 256, 200, 4096
+    h1, w_out, b_out = _sample_operands(dev, torch.float32, 2, H, Vp, V, 5)
+    b_out[3] = 0.0  # not all the mass on one token
+    h = h1[1:].expand(n, H).contiguous()
+    cfg = DecodeConfig(top_k=30, top_p=0.9)
+    tok = torch.empty(n, dtype=torch.int32, device=dev)
+    ds.vocab_sample_step(h, w_out, b_out, tok, None, None, 0, 2, 0, seed=int(rng.integers(1 << 30)),
+                         top_k=cfg.top_k, top_p=cfg.top_p)
+    probs = next_token_probs((h[:1].float() @ w_out + b_out)[:, :V], cfg)[0].double().cpu()
+    counts = torch.bincount(tok.long().cpu(), minlength=V).double()
+    support = probs > 0
+    assert counts[~support].sum() == 0
+    expected = probs[support] / probs[support].sum() * n
+    assert stats.chisquare(counts[support].numpy(), expected.numpy()).pvalue >= 1e-3
+
+
+@pytest.mark.parametrize("kind", ["vector", "grid"])
+@pytest.mark.parametrize("B,kw", [(37, dict(top_k=10, top_p=0.8, temperature=0.8)), (5, dict(top_k=4)),
+                                  (21, dict(top_p=0.95, temperature=1.4))])
+def test_sample_decode_ragged(dev, kind, B, kw):
+    """Whole sampling decodes, float32, a tile of 8 rows: every row that
+    differs from the plain version first differs at a knife edge of the
+    plain version's step; early exit gives the full loop's tokens; one
+    vocab_sample_step launch a step."""
+    rng = np.random.default_rng(B)
+    E, H, A, V, Vp, T, S = 40, 48, 48, 50, 128, 30, 11
+    packed = _small_decoder(dev, rng, E, H, V, Vp)
+    mem = _t(np.maximum(rng.normal(size=(B, S, E)), 0), dev)
+    kw = dict(kw, seed=3, batch_tile=8)
+    top_k = kw.pop("top_k", 0)
+    if kind == "grid":
+        att = {"w_h": _t(rng.normal(size=(H, A)) / np.sqrt(H), dev),
+               "w_m": _t(rng.normal(size=(E, A)) / np.sqrt(E), dev),
+               "b": _t(rng.normal(size=A) * 0.1, dev), "v": _t(rng.normal(size=A) / np.sqrt(A), dev),
+               "attn_dim": A, "mem_dim": E, "hidden_dim": H}
+        u = ds_grid.grid_memory_proj(att, mem)
+
+        def run(fn, **extra):
+            return fn(packed, att, mem, u, T, 1, 2, 0, top_k, **kw, **extra)
+
+        kernel, plain = ds_grid.grid_sample_decode, ds_grid.grid_sample_decode_plain
+    else:
+        def run(fn, **extra):
+            return fn(packed, mem[:, 0, :], T, 1, 2, 0, top_k, **kw, **extra)
+
+        kernel, plain = ds.sample_decode, ds.sample_decode_plain
+    n0 = ds.vocab_sample_step.launches
+    got = run(kernel)
+    assert ds.vocab_sample_step.launches - n0 == T
+    ref, gaps, mass = run(plain, return_gaps=True)
+    diff = (got != ref).cpu().numpy()
+    first = diff.argmax(axis=1)
+    for r in np.where(diff.any(axis=1))[0]:
+        assert gaps[r, first[r]].item() <= 1e-4 or mass[r, first[r]].item() <= 1e-5, (r, first[r])
+    assert diff.any(axis=1).mean() <= 0.1
+    assert torch.equal(run(kernel, early_exit=True), got)

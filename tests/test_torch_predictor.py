@@ -101,7 +101,10 @@ def test_tokens_end_then_pad(pair):
 
 
 def test_beam_and_sampling_not_ported(pair):
-    """Beam is ported now (from the config or the keyword); sampling still raises."""
+    """Beam and sampling are ported now: beam from the config or the
+    keyword; sampling settings draw (seeded, reproducibly) instead of
+    raising, while a plain temperature still takes the argmax and beam
+    ignores them."""
     _, tpred = pair
     tpred.cfg.inference.beam_size = 3
     try:
@@ -110,9 +113,13 @@ def test_beam_and_sampling_not_ported(pair):
         tpred.cfg.inference.beam_size = 0
     assert len(tpred.predict_batch(_images(1), beam_size=2, return_ids=True)) == 1
     for kw in ({"top_k": 5}, {"top_p": 0.9}, {"top_k": 3, "temperature": 0.7}):
-        with pytest.raises(NotImplementedError):
-            tpred.predict_batch(_images(1), **kw)
+        ids = tpred.predict_batch(_images(3), return_ids=True, **kw)
+        assert len(ids) == 3 and all(0 <= t < tpred.tokenizer.vocab_size for r in ids for t in r)
+        assert ids == tpred.predict_batch(_images(3), return_ids=True, **kw)
+        assert tpred.decode_config(**kw).sampling
     assert tpred.predict_batch(_images(1), temperature=0.5) == tpred.predict_batch(_images(1))
+    assert (tpred.predict_batch(_images(2), beam_size=2, top_k=5, return_ids=True)
+            == tpred.predict_batch(_images(2), beam_size=2, return_ids=True))
 
 
 def test_no_card_and_no_cpu_raises(monkeypatch):
