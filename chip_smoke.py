@@ -35,11 +35,14 @@ there is no CUDA device or any phase fails.  Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import functools
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1392,6 +1395,506 @@ def phase_grid_sample_end_to_end(dev, card, gcfg, gmodel, tokenizer, images, ker
                 lambda: grid_sample_decode(packed, att, mem, u, MAX_LEN, 1, END_ID, 0, SAMPLE["top_k"], seed, **kw))
 
 
+# ---------------------------------------------------------------------------
+# Training (bench_train.py's shapes): lstm_seq, the conv1 backward, the train
+# step, Trainer.train() with a checkpoint, and a grid-memory train step.
+# ---------------------------------------------------------------------------
+TRAIN_BATCH = 128              # bench_train.py's batch
+TRAIN_T = MAX_LEN - 1          # LSTM steps of a teacher-forced pass (inputs are targets[:, :-1])
+TRAIN_DROPOUT, TRAIN_SMOOTHING, TRAIN_CLIP, TRAIN_LR = 0.3, 0.1, 5.0, 1e-3
+TRAIN_STEPS_TIMED = 20
+LSTM_NAMES = ("ys", "hT", "cT", "dgates_x", "dh0", "dc0", "dW_hh")
+# Every training tolerance is on max |got - ref| / max |ref| of one tensor.
+# lstm_seq against its plain versions (lstm_seq_fwd_plain / lstm_seq_bwd_plain,
+# the kernels' rounding points): float32 sums of up to T*B = 17920 terms in
+# another order; in bf16 a stored value that rounds the other way moves the
+# later steps by a rounding step (2^-8 relative), so 4 steps.
+LSTM_TOL = {"float32": 1e-4, "bfloat16": 2.0**-6}
+# lstm_seq against lstm_seq_plain differentiated by autograd, which rounds the
+# dh and dc carries to the compute type at each of the T steps where the
+# kernel carries them in float32: in bf16 ~sqrt(T) rounding steps of 2^-9.
+LSTM_ORACLE_TOL = {"float32": 1e-4, "bfloat16": 2.0**-4}
+# conv1_pool's backward is autograd of conv1_pool_plain on both paths; cuDNN's
+# gradients sum in an order that may change from call to call, and in bf16 a
+# float32 dx may then round to the neighbouring bf16 value (2^-8 of it).
+CONV_BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0**-7}
+# The block-0 weight's gradient through the whole encoder, kernel forward vs
+# plain forward: bf16 activations downstream of a rounding flip.
+ENC_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2.0**-5}
+# The train step, kernel path vs plain path (lstm_seq_plain, conv1_pool_plain)
+# from the same weights, batch and dropout seed, bf16: the loss is a forward
+# whose only difference is the order of float32 sums; the gradients differ
+# by lstm_seq_plain's bf16 carries (LSTM_ORACLE_TOL) through every layer.
+STEP_LOSS_RTOL = 1e-3
+STEP_GRAD_TOL = 2.0**-3
+STEP_GNORM_RTOL = 2e-2
+# Adam's first update is ~lr * sign(g): where a gradient is near 0 the two
+# paths may step apart by up to 2 lr; most elements must agree within lr/10.
+STEP_PARAM_ATOL = 2.0 * TRAIN_LR * 1.01
+STEP_PARAM_FAR_SHARE = 0.01
+
+
+def train_config(memory: str = "vector"):
+    """bench_train.py's configuration (vector) or the grid flagship's width,
+    bf16, dropout 0.3, label smoothing 0.1, clip 5.0."""
+    from img2latex_tpu_torch.config import Config
+
+    cfg = grid_config() if memory == "grid" else Config()
+    if memory != "grid":
+        cfg.model.embedding_dim = EMBED
+        cfg.model.decoder.hidden_dim = HIDDEN
+        cfg.model.decoder.lstm_layers = LAYERS
+        cfg.model.encoder.cnn.img_height, cfg.model.encoder.cnn.img_width = IMG_H, IMG_W
+        cfg.model.encoder.cnn.conv_filters = list(FILTERS)
+        cfg.data.max_seq_length = cfg.inference.max_length = MAX_LEN
+        cfg.hardware.compute_dtype = "bfloat16"
+    cfg.model.decoder.dropout = TRAIN_DROPOUT
+    cfg.training.label_smoothing = TRAIN_SMOOTHING
+    cfg.training.clip_grad_norm = TRAIN_CLIP
+    cfg.training.learning_rate = TRAIN_LR
+    cfg.data.batch_size = TRAIN_BATCH
+    return cfg
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Run the model's training path through the plain versions: lstm_seq_plain
+    for the LSTM recurrence and conv1_pool_plain for block 0.  Only the
+    reference runs of this script ask for it."""
+    from img2latex_tpu_torch.models import encoder as enc_mod
+    from img2latex_tpu_torch.models import lstm as lstm_mod
+    from img2latex_tpu_torch.ops.conv1_phase import conv1_pool_plain
+    from img2latex_tpu_torch.ops.lstm_train import lstm_seq_plain
+
+    saved = enc_mod.conv1_pool, lstm_mod.lstm_seq
+    enc_mod.conv1_pool, lstm_mod.lstm_seq = conv1_pool_plain, lstm_seq_plain
+    try:
+        yield
+    finally:
+        enc_mod.conv1_pool, lstm_mod.lstm_seq = saved
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| / max |ref|, in float32."""
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _lstm_operands(dev, rng, T, B, H, dtype, zero_state=False):
+    import torch
+
+    def mk(*shape, sc=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * sc).astype(np.float32)).to(dev, dtype)
+
+    op = dict(gx=mk(T, B, 4 * H), h0=mk(B, H, sc=0.5), c0=mk(B, H, sc=0.5),
+              w=mk(4 * H, H, sc=1.0 / np.sqrt(H)), dys=mk(T, B, H), dhT=mk(B, H), dcT=mk(B, H))
+    if zero_state:
+        op["h0"].zero_()
+        op["c0"].zero_()
+    return op
+
+
+def _lstm_outputs_and_grads(fn, op):
+    """(ys, hT, cT) of fn and the gradients of gates_x, h0, c0, w_hh under the
+    cotangents of op."""
+    import torch
+
+    leaves = [op[k].clone().requires_grad_() for k in ("gx", "h0", "c0", "w")]
+    outs = fn(*leaves)
+    grads = torch.autograd.grad(outs, leaves, [op["dys"], op["dhT"], op["dcT"]])
+    return [o.detach() for o in outs] + list(grads)
+
+
+def _lstm_plain_pair(op):
+    """The same seven tensors from lstm_seq_fwd_plain and lstm_seq_bwd_plain."""
+    from img2latex_tpu_torch.ops.lstm_train import lstm_seq_bwd_plain, lstm_seq_fwd_plain
+
+    ys, cs, ga = lstm_seq_fwd_plain(op["gx"], op["h0"], op["c0"], op["w"].t().contiguous())
+    dgx, dh0, dc0, dw = lstm_seq_bwd_plain(op["dys"], op["dhT"], op["dcT"], ga, cs, op["h0"],
+                                           op["c0"], ys, op["w"])
+    return [ys, ys[-1], cs[-1], dgx, dh0, dc0, dw]
+
+
+def phase_lstm_seq(dev, rng, card: str, kernels: dict, T=TRAIN_T, B=TRAIN_BATCH, H=HIDDEN,
+                   odd=((3, 5, 40), (1, 3, HIDDEN), (9, 70, 33))) -> None:
+    """lstm_seq forward and backward against both plain versions, at the
+    train step's shapes and at odd ones; then the times of one layer."""
+    import torch
+
+    from img2latex_tpu_torch.ops.lstm_train import (
+        lstm_seq, lstm_seq_bwd, lstm_seq_bwd_plain, lstm_seq_fwd, lstm_seq_fwd_plain, lstm_seq_plain)
+
+    abs_err = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for shape in ((T, B, H),) + tuple(odd):
+            op = _lstm_operands(dev, rng, *shape, dtype)
+            got = _lstm_outputs_and_grads(lstm_seq, op)
+            ref_a = _lstm_plain_pair(op)
+            ref_b = _lstm_outputs_and_grads(lstm_seq_plain, op)
+            ea = {n: rel_err(g, r) for n, g, r in zip(LSTM_NAMES, got, ref_a)}
+            eb = {n: rel_err(g, r) for n, g, r in zip(LSTM_NAMES, got, ref_b)}
+            log(f"lstm_seq {name} T,B,H={shape}: rel err vs its plain versions "
+                f"{json.dumps({k: float(f'{v:.3g}') for k, v in ea.items()})} (tol {LSTM_TOL[name]:.3g}); "
+                f"vs lstm_seq_plain (autograd) {json.dumps({k: float(f'{v:.3g}') for k, v in eb.items()})} "
+                f"(tol {LSTM_ORACLE_TOL[name]:.3g})")
+            check(max(ea.values()) <= LSTM_TOL[name], f"lstm_seq {name} {shape} vs its plain versions: {ea}")
+            check(max(eb.values()) <= LSTM_ORACLE_TOL[name], f"lstm_seq {name} {shape} vs lstm_seq_plain: {eb}")
+            check(all(torch.isfinite(g.float()).all().item() for g in got), f"lstm_seq {name} {shape}: non-finite")
+            if shape == (T, B, H) and name == "float32":
+                abs_err["fwd"] = max((g.float() - r.float()).abs().max().item() for g, r in zip(got[:3], ref_a[:3]))
+                abs_err["bwd"] = max((g.float() - r.float()).abs().max().item() for g, r in zip(got[3:], ref_a[3:]))
+
+    # one layer's times at the train step's shapes, bf16
+    op = _lstm_operands(dev, rng, T, B, H, torch.bfloat16)
+    gx, h0, c0, w = op["gx"], op["h0"], op["c0"], op["w"]
+    wt = w.t().contiguous()
+    ys, cs, ga = lstm_seq_fwd(gx, h0, c0, wt)
+    bwd_args = (op["dys"], op["dhT"], op["dcT"], ga, cs, h0, c0, ys, w)
+    ms_f = time_ms(lambda: lstm_seq_fwd(gx, h0, c0, wt), iters=5, warmup=1)
+    ms_b = time_ms(lambda: lstm_seq_bwd(*bwd_args), iters=5, warmup=1)
+    ms_fp = time_ms(lambda: lstm_seq_fwd_plain(gx, h0, c0, wt), iters=2, warmup=1)
+    ms_bp = time_ms(lambda: lstm_seq_bwd_plain(*bwd_args), iters=2, warmup=1)
+    # the library call: one cuDNN layer, which also computes its input projection
+    cudnn = torch.nn.LSTM(H, H, device=dev, dtype=torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((T, B, H), dtype=np.float32)).to(dev, torch.bfloat16)
+    x.requires_grad_()
+
+    def cudnn_fwd_bwd():
+        y, _ = cudnn(x)
+        y.backward(op["dys"])
+
+    with torch.no_grad():
+        ms_lf = time_ms(lambda: cudnn(x), iters=5, warmup=1)
+    ms_lfb = time_ms(cudnn_fwd_bwd, iters=5, warmup=1)
+    e = 2
+    fwd_bytes = e * (T * B * 4 * H + 4 * H * H + 2 * B * H + 2 * T * B * H + T * B * 4 * H)
+    bwd_bytes = e * (3 * T * B * H + T * B * 4 * H + 4 * H * H + 4 * B * H     # dys, cs, ys, ga, w, dhT, dcT, h0, c0
+                     + T * B * 4 * H + 2 * B * H + 4 * H * H)                   # dgates_x, dh0, dc0, dW_hh
+    bnd_f, by_f = bound_ms(fwd_bytes, 2 * T * B * H * 4 * H, "bfloat16")
+    bnd_b, by_b = bound_ms(bwd_bytes, 4 * T * B * H * 4 * H, "bfloat16")
+    log(f"lstm_seq one layer bf16 T={T} B={B} H={H}: forward {ms_f:.3f} ms ({T} launches, "
+        f"{1e3 * ms_f / T:.1f} us each), backward {ms_b:.3f} ms ({T + 1} step launches + 2 dW_hh); "
+        f"plain forward {ms_fp:.3f} ms, backward {ms_bp:.3f} ms; nn.LSTM (cuDNN, with its input "
+        f"projection) forward {ms_lf:.3f} ms, backward {ms_lfb - ms_lf:.3f} ms; bound forward "
+        f"{bnd_f:.4f} ms ({by_f}), backward {bnd_b:.4f} ms ({by_b}) [{card}]")
+    src = "img2latex_tpu_torch/csrc/lstm_seq.cu"
+    kernels["lstm_seq_fwd"] = dict(
+        name="lstm_seq_fwd", route="cuda", source=src, replaces="img2latex_tpu/ops/pallas/lstm_train.py:103",
+        max_abs_err=abs_err["fwd"], ms=ms_f, plain_ms=ms_fp, bound_ms=bnd_f, bound_by=by_f, library_ms=ms_lf)
+    kernels["lstm_seq_bwd"] = dict(
+        name="lstm_seq_bwd", route="cuda", source=src, replaces="img2latex_tpu/ops/pallas/lstm_train.py:205",
+        max_abs_err=abs_err["bwd"], ms=ms_b, plain_ms=ms_bp, bound_ms=bnd_b, bound_by=by_b,
+        library_ms=ms_lfb - ms_lf)
+
+
+def phase_conv1_backward(dev, rng, card: str, kernels: dict, cfg, B=TRAIN_BATCH) -> None:
+    """conv1_pool's backward against autograd of conv1_pool_plain, and the
+    repaired fault: the block-0 weight's gradient through the encoder."""
+    import torch
+    import torch.nn.functional as F
+
+    from img2latex_tpu_torch.models.seq2seq import build_model
+    from img2latex_tpu_torch.ops.conv1_phase import conv1_pool, conv1_pool_plain
+    from img2latex_tpu_torch.ops.preprocess import normalize_images
+
+    Hh, Ww = cfg.model.encoder.cnn.img_height, cfg.model.encoder.cnn.img_width
+    C = cfg.model.encoder.cnn.conv_filters[0]
+    u8 = torch.from_numpy(rng.integers(0, 256, size=(B, Hh, Ww, 1), dtype=np.uint8)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((C, 1, 3, 3), dtype=np.float32) / 3.0).to(dev)
+    b = torch.from_numpy(rng.standard_normal(C, dtype=np.float32) * 0.1).to(dev)
+    err32 = None
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        x = normalize_images(u8, dtype=dtype)
+        g = torch.from_numpy(rng.standard_normal((B, C, Hh // 2, Ww // 2), dtype=np.float32)).to(dev, dtype)
+
+        def grads(fn):
+            leaves = [x.clone().requires_grad_(), w.clone().requires_grad_(), b.clone().requires_grad_()]
+            return torch.autograd.grad(fn(*leaves), leaves, g)
+
+        got, ref = grads(conv1_pool), grads(conv1_pool_plain)
+        errs = {n: rel_err(a, r) for n, a, r in zip(("dx", "dweight", "dbias"), got, ref)}
+        log(f"conv1_pool backward {name} ({B},{Hh},{Ww},1): rel err vs autograd of conv1_pool_plain "
+            f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})} (tol {CONV_BWD_TOL[name]})")
+        check(max(errs.values()) <= CONV_BWD_TOL[name], f"conv1_pool backward {name}: {errs}")
+        check(got[1].abs().max().item() > 0, f"conv1_pool backward {name}: zero weight gradient")
+        if name == "float32":
+            err32 = max((a - r).abs().max().item() for a, r in zip(got, ref))
+
+    # times of the backward alone, bf16 (the kernel path recomputes the forward)
+    leaves = [x.clone().requires_grad_(), w.clone().requires_grad_(), b.clone().requires_grad_()]
+    out_k = conv1_pool(*leaves)
+    out_p = conv1_pool_plain(*leaves)
+    xl = leaves[0].permute(0, 3, 1, 2).contiguous().detach().requires_grad_()
+    wl = w.to(torch.bfloat16).requires_grad_()
+    bl = b.to(torch.bfloat16).requires_grad_()
+    out_l = F.max_pool2d(F.relu(F.conv2d(xl, wl, bl, padding=1)), 2)
+    ms_k = time_ms(lambda: torch.autograd.grad(out_k, leaves, g, retain_graph=True))
+    ms_p = time_ms(lambda: torch.autograd.grad(out_p, leaves, g, retain_graph=True))
+    ms_l = time_ms(lambda: torch.autograd.grad(out_l, [xl, wl, bl], g, retain_graph=True))
+    nbytes = 2 * (2 * B * Hh * Ww + B * C * (Hh // 2) * (Ww // 2)) + 2 * 4 * (C * 10)
+    bnd, by = bound_ms(nbytes, 2 * 2 * 9 * C * B * Hh * Ww, "bfloat16")
+    log(f"conv1_pool backward bf16 ({B},{Hh},{Ww},1): eager (recomputes the float32 forward) {ms_k:.3f} ms, "
+        f"plain autograd {ms_p:.3f} ms, conv2d+relu+max_pool2d bf16 backward {ms_l:.3f} ms, "
+        f"bound {bnd:.4f} ms ({by}) [{card}]")
+    kernels["conv1_pool_bwd"] = dict(
+        name="conv1_pool_bwd", route="eager", source="img2latex_tpu_torch/ops/conv1_phase.py",
+        replaces="img2latex_tpu/ops/pallas/conv1_phase.py:274", max_abs_err=err32,
+        ms=ms_k, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=ms_l)
+
+    # the repaired fault: block 0's weight gets its gradient through the encoder on the card
+    for name in ("float32", "bfloat16"):
+        ecfg = copy.deepcopy(cfg)
+        ecfg.hardware.compute_dtype = name
+        enc = build_model(ecfg, VOCAB, seed=SEED).encoder  # on the card: no device named
+        x = normalize_images(u8[:16], dtype=torch.float32)
+        gm = torch.from_numpy(rng.standard_normal((x.shape[0], cfg.model.embedding_dim), dtype=np.float32)).to(dev)
+        grads = []
+        for path in (contextlib.nullcontext, plain_path):
+            enc.zero_grad()
+            with path():
+                (enc(x).float() * gm).sum().backward()
+            grads.append(enc.convs[0].weight.grad.clone())
+        e_enc = rel_err(grads[0], grads[1])
+        nonzero = grads[0].abs().max().item()
+        log(f"encoder {name} on the card: block-0 weight gradient max |g| {nonzero:.3g}, rel err vs the "
+            f"plain path {e_enc:.3g} (tol {ENC_GRAD_TOL[name]:.3g})")
+        check(nonzero > 0, f"encoder {name}: the block-0 weight got no gradient on the card")
+        check(e_enc <= ENC_GRAD_TOL[name], f"encoder {name}: block-0 gradient {e_enc} off the plain path's")
+
+
+def _train_batch(cfg, seed: int):
+    from img2latex_tpu_torch.data.synthetic import synthetic_batch
+
+    h, w, c = cfg.image_shape
+    images, formulas = synthetic_batch(TRAIN_BATCH, (h, w, c), cfg.data.max_seq_length, VOCAB, seed=seed)
+    return {"images": images, "formulas": formulas, "n_valid": np.int32(TRAIN_BATCH)}
+
+
+def _step_pair(cfg, batch):
+    """One train step on the kernel path and one on the plain path, from the
+    same weights, batch and dropout seed: (metrics, gradients, parameters) each."""
+    import torch
+
+    from img2latex_tpu_torch.models.seq2seq import build_model
+    from img2latex_tpu_torch.training.optim import build_optimizer
+    from img2latex_tpu_torch.training.steps import create_train_state, make_train_step, train_loss
+
+    out = []
+    for path in (contextlib.nullcontext, plain_path):
+        model = build_model(cfg, VOCAB, seed=SEED)  # on the card: no device named
+        state = create_train_state(model, build_optimizer(cfg, model), cfg, seed=SEED)
+        with path():
+            loss, _, _ = train_loss(state, cfg, batch, 0)
+            grads = torch.autograd.grad(loss, state.optimizer.params)
+            state.generator.manual_seed(SEED)  # the step draws the same dropout masks again
+            metrics = make_train_step(cfg, 0)(state, batch)
+        out.append((metrics, grads, [p.detach().clone() for p in state.optimizer.params],
+                    [n for n, _ in model.named_parameters()]))
+    return out
+
+
+def _compare_steps(what: str, pair) -> dict:
+    (mk, gk, pk, names), (mp, gp, pp, _) = pair
+    loss_k, loss_p = mk["loss"].item(), mp["loss"].item()
+    gn_k, gn_p = mk["grad_norm"].item(), mp["grad_norm"].item()
+    g_err = {n: rel_err(a, b) for n, a, b in zip(names, gk, gp)}
+    worst = max(g_err, key=g_err.get)
+    d = [(a - b).abs() for a, b in zip(pk, pp)]
+    p_max = max(x.max().item() for x in d)
+    far = sum((x > 0.1 * TRAIN_LR).sum().item() for x in d) / sum(x.numel() for x in d)
+    stats = dict(loss=loss_k, loss_plain=loss_p, loss_rel=abs(loss_k - loss_p) / abs(loss_p),
+                 grad_norm=gn_k, grad_norm_plain=gn_p, grad_norm_rel=abs(gn_k - gn_p) / gn_p,
+                 worst_grad=worst, worst_grad_rel=g_err[worst], param_max_abs=p_max, param_far_share=far)
+    log(f"{what}: kernel path vs plain path {json.dumps(stats)} (tols: loss {STEP_LOSS_RTOL}, grad norm "
+        f"{STEP_GNORM_RTOL}, each gradient {STEP_GRAD_TOL}, parameters {STEP_PARAM_ATOL:.4g} with at most "
+        f"{STEP_PARAM_FAR_SHARE} beyond lr/10)")
+    check(np.isfinite(loss_k) and np.isfinite(gn_k), f"{what}: non-finite loss or grad norm")
+    check(stats["loss_rel"] <= STEP_LOSS_RTOL, f"{what}: loss {loss_k} vs plain {loss_p}")
+    check(stats["grad_norm_rel"] <= STEP_GNORM_RTOL, f"{what}: grad norm {gn_k} vs plain {gn_p}")
+    check(g_err[worst] <= STEP_GRAD_TOL, f"{what}: gradient of {worst} off by {g_err[worst]}")
+    check(p_max <= STEP_PARAM_ATOL and far <= STEP_PARAM_FAR_SHARE, f"{what}: parameters after one step {stats}")
+    return stats
+
+
+def _time_gemm(dev, m, k, n):
+    """ms of one bf16 F.linear (m, k) x (k, n) forward and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    a = torch.randn(m, k, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    w = torch.randn(n, k, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    g = torch.randn(m, n, device=dev, dtype=torch.bfloat16)
+
+    def run():
+        F.linear(a, w).backward(g)
+
+    return time_ms(run, iters=10, warmup=2)
+
+
+def phase_train_step(dev, card: str, cfg, steps: int = TRAIN_STEPS_TIMED) -> None:
+    """The whole train step at bench_train.py's shapes against the plain path,
+    then a timed run with a torch.profiler split."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from img2latex_tpu_torch.models.seq2seq import build_model
+    from img2latex_tpu_torch.ops.conv1_phase import conv1_pool
+    from img2latex_tpu_torch.ops.lstm_train import lstm_seq_bwd, lstm_seq_fwd
+    from img2latex_tpu_torch.training.optim import build_optimizer
+    from img2latex_tpu_torch.training.steps import create_train_state, make_train_step
+
+    batch = _train_batch(cfg, seed=SEED)
+    _compare_steps(f"train step (vector, {cfg.hardware.compute_dtype}, B={TRAIN_BATCH}, dropout {TRAIN_DROPOUT})",
+                   _step_pair(cfg, batch))
+
+    model = build_model(cfg, VOCAB, seed=SEED)
+    state = create_train_state(model, build_optimizer(cfg, model), cfg)
+    step = make_train_step(cfg, 0)
+    dbatch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}  # on the card, as a device cache would
+    for _ in range(2):
+        step(state, dbatch)
+    torch.cuda.synchronize()
+    lstm_seq_fwd.launches = lstm_seq_bwd.launches = conv1_pool.launches = conv1_pool.backward_calls = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        m = step(state, dbatch)
+    loss = m["loss"].item()  # waits for the card
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    per_step = {"lstm_seq_fwd": lstm_seq_fwd.launches / steps, "lstm_seq_bwd": lstm_seq_bwd.launches / steps,
+                "conv1_pool": conv1_pool.launches / steps, "conv1_pool_bwd": conv1_pool.backward_calls / steps}
+    log(f"train step (vector, {cfg.hardware.compute_dtype}, B={TRAIN_BATCH}): {ms:.2f} ms a step over {steps} steps = "
+        f"{TRAIN_BATCH * 1e3 / ms:.1f} images/s, last loss {loss:.4f}; launches a step {json.dumps(per_step)} [{card}]")
+    check(np.isfinite(loss), "train step: non-finite loss")
+
+    # where the step's time goes: kernels by name under torch.profiler over 3 steps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, dbatch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    groups = (("lstm_seq kernels", ("lstm_seq",)), ("conv1_pool kernel", ("conv1_pool",)),
+              ("convolution and pooling (cuDNN)", ("conv", "cudnn", "dgrad", "wgrad", "fprop", "pool",
+                                                  "implicit")),
+              ("GEMMs: head, input projections, vocab product, their gradients",
+               ("gemm", "cutlass", "xmma", "sm90", "cublas", "splitk")),
+              ("optimizer (Adam, clip, norms)", ("adam", "multi_tensor", "foreach", "norm")))
+    split, other = {}, {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or 0
+        if t <= 0 or getattr(e, "device_type", None) != DeviceType.CUDA:  # kernels, not the ops launching them
+            continue
+        key = next((g for g, pats in groups if any(p in e.key.lower() for p in pats)), "other elementwise")
+        ms_g, n = split.get(key, (0.0, 0))
+        split[key] = (ms_g + t / 1e3 / 3, n + e.count / 3)
+        if key == "other elementwise":
+            other[e.key[:60]] = round(t / 1e3 / 3, 3)
+    busy = sum(v for v, _ in split.values())
+    if busy > 0:
+        top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])
+        log(f"train step under torch.profiler (per step): wall {wall / 3:.2f} ms, device busy {busy:.2f} ms "
+            f"({100 * busy * 3 / wall:.1f}%), host idle {wall / 3 - busy:.2f} ms; by group (ms, launches): "
+            f"{json.dumps({k: [round(a, 3), round(b, 1)] for k, (a, b) in split.items()})}; largest "
+            f"'other' kernels (ms): {json.dumps(top)} [{card}]")
+    else:
+        log("train step under torch.profiler: no device time seen (not measured)")
+    T, B, E, H = TRAIN_T, TRAIN_BATCH, cfg.model.embedding_dim, cfg.model.decoder.hidden_dim
+    C, Hf, Wf = FILTERS[-1], IMG_H // 8, IMG_W // 8
+    log(f"GEMMs of the step timed alone (bf16 forward and backward): head ({B} x {C * Hf * Wf} -> {E}) "
+        f"{_time_gemm(dev, B, C * Hf * Wf, E):.3f} ms, vocab product ({T * B} x {H} -> {VOCAB}) "
+        f"{_time_gemm(dev, T * B, H, VOCAB):.3f} ms, input projections ({T * B} x {2 * E} and x {H} -> {4 * H}) "
+        f"{_time_gemm(dev, T * B, 2 * E, 4 * H) + _time_gemm(dev, T * B, H, 4 * H):.3f} ms [{card}]")
+
+
+def phase_trainer(dev, card: str, cfg, tokenizer, kernels: dict, epochs: int = 2, steps_per_epoch: int = 4) -> None:
+    """Trainer.train() for two short epochs on a repeated synthetic batch (the
+    main path of the training slice: the kernels' counts are read around
+    it), then a checkpoint that Predictor.from_checkpoint loads and decodes
+    with, giving the trained model's ids."""
+    import torch
+
+    from img2latex_tpu_torch.ops.conv1_phase import conv1_pool
+    from img2latex_tpu_torch.ops.lstm_train import lstm_seq_bwd, lstm_seq_fwd
+    from img2latex_tpu_torch.training.predictor import Predictor
+    from img2latex_tpu_torch.training.trainer import Trainer
+    from img2latex_tpu_torch.utils.paths import PathManager
+
+    tcfg = copy.deepcopy(cfg)
+    tcfg.training.epochs = epochs
+    tcfg.data.log_frequency = 2
+    tcfg.evaluation.bleu_batches = 1
+    batch = _train_batch(tcfg, seed=SEED + 1)
+    loaders = {"train": [batch] * steps_per_epoch, "validate": [batch]}
+    with tempfile.TemporaryDirectory(dir=str(_build_dir())) as tmp:
+        trainer = Trainer(tcfg, tokenizer, loaders, paths=PathManager(tmp))  # on the card: no device named
+        before = trainer.eval_step(trainer.state, batch)["loss"].item()
+        torch.cuda.synchronize()
+        lstm_seq_fwd.launches = lstm_seq_bwd.launches = conv1_pool.launches = conv1_pool.backward_calls = 0
+        t0 = time.perf_counter()
+        result = trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"lstm_seq_fwd": lstm_seq_fwd.launches, "lstm_seq_bwd": lstm_seq_bwd.launches,
+                    "conv1_pool": conv1_pool.launches, "conv1_pool_bwd": conv1_pool.backward_calls}
+        hist = result["history"]
+        losses = [hist[e]["train_loss"] for e in sorted(hist)]
+        val = [hist[e]["val_loss"] for e in sorted(hist)]
+        log(f"Trainer.train(): {epochs} epochs of {steps_per_epoch} steps (B={TRAIN_BATCH}, "
+            f"{tcfg.hardware.compute_dtype}) in {wall:.2f} s; "
+            f"val loss before {before:.4f}, train loss by epoch {losses}, val loss {val}, val BLEU "
+            f"{hist[max(hist)]['val_bleu']:.4f}, {hist[max(hist)]['train_images_per_sec']:.1f} images/s in the last "
+            f"epoch; launches {json.dumps(launches)} [{card}]")
+        for name in ("lstm_seq_fwd", "lstm_seq_bwd", "conv1_pool_bwd"):
+            check(launches[name] > 0, f"{name} was not run on the training path")
+            kernels[name]["launches"] = launches[name]
+        check(launches["conv1_pool"] > 0, "conv1_pool was not launched on the training path")
+        check(all(np.isfinite(losses + val)), "Trainer: non-finite loss")
+        check(val[-1] < before and losses[-1] < losses[0], "Trainer: the loss on the repeated batch did not fall")
+
+        step_dir = trainer.ckpt_dir / f"step_{trainer.state.step}"
+        meta = json.loads((step_dir / "meta.json").read_text())
+        keys = {"epoch", "step", "best_val_loss", "config", "tokenizer_config", "metrics", "scheduler",
+                "early_stopping"}
+        check(keys <= set(meta), f"checkpoint meta.json keys {sorted(meta)}")
+        loaded = Predictor.from_checkpoint(str(step_dir), batch_size=TRAIN_BATCH)  # on the card
+        sd, sd_ref = loaded.model.state_dict(), trainer.model.state_dict()
+        check(all(torch.equal(sd[k], sd_ref[k]) for k in sd_ref), "checkpoint weights differ from the trainer's")
+        in_memory = Predictor(tcfg, trainer.model, tokenizer, batch_size=TRAIN_BATCH)
+        ids_ck = loaded.decode_canvases(batch["images"])
+        ids_mem = in_memory.decode_canvases(batch["images"])
+        log(f"Predictor.from_checkpoint({step_dir.name}): greedy ids equal to the trained model's in memory: "
+            f"{bool(np.array_equal(ids_ck, ids_mem))} ({ids_ck.shape}, {len(np.unique(ids_ck))} distinct tokens)")
+        check(np.array_equal(ids_ck, ids_mem), "ids from the checkpoint differ from the trained model's")
+
+
+def phase_grid_train_step(dev, card: str, gcfg) -> None:
+    """One grid-memory train step at the grid flagship's width: the kernel
+    path (conv1_pool is its only kernel) against the plain path, and its time."""
+    import torch
+
+    from img2latex_tpu_torch.models.seq2seq import build_model
+    from img2latex_tpu_torch.training.optim import build_optimizer
+    from img2latex_tpu_torch.training.steps import create_train_state, make_train_step
+
+    batch = _train_batch(gcfg, seed=SEED + 2)
+    _compare_steps(f"grid train step ({gcfg.hardware.compute_dtype}, B={TRAIN_BATCH}, S={GRID_S}, H={GRID_HIDDEN})",
+                   _step_pair(gcfg, batch))
+    model = build_model(gcfg, VOCAB, seed=SEED)
+    state = create_train_state(model, build_optimizer(gcfg, model), gcfg)
+    step = make_train_step(gcfg, 0)
+    ms = time_ms(lambda: step(state, batch), iters=3, warmup=1)
+    log(f"grid train step ({gcfg.hardware.compute_dtype}, B={TRAIN_BATCH}): {ms:.2f} ms a step = {TRAIN_BATCH * 1e3 / ms:.1f} images/s "
+        f"(the teacher-forced grid pass is a plain loop of cell steps) [{card}]")
+
+
+def _build_dir():
+    from img2latex_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return _build.BUILD_DIR
+
+
 def main() -> int:
     import torch
 
@@ -1668,10 +2171,27 @@ def main() -> int:
     # ---- phase 12: the grid sampling path end to end --------------------------
     phase_grid_sample_end_to_end(dev, card, gcfg, gmodel, tokenizer, gimages, kernels)
 
+    # ---- phase 13: training: lstm_seq forward and backward alone ------------
+    tcfg = train_config()
+    phase_lstm_seq(dev, rng, card, kernels)
+
+    # ---- phase 14: the conv1 backward, and block 0's gradient through the encoder
+    phase_conv1_backward(dev, rng, card, kernels, tcfg)
+
+    # ---- phase 15: the whole train step against the plain path, timed ----------
+    phase_train_step(dev, card, tcfg)
+
+    # ---- phase 16: Trainer.train(), a checkpoint, Predictor.from_checkpoint ---
+    phase_trainer(dev, card, tcfg, tokenizer, kernels)
+
+    # ---- phase 17: one grid-memory train step -----------------------------------
+    phase_grid_train_step(dev, card, train_config("grid"))
+
     # ---- report --------------------------------------------------------------
     log(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s (build included)")
     order = ("conv1_pool", "conv1_pool[bias=0]", "lstm_layer_step", "vocab_argmax_step", "attend_step",
-             "beam_step", f"attend_step[rows_per_mem={BEAM}]", "vocab_sample_step")
+             "beam_step", f"attend_step[rows_per_mem={BEAM}]", "vocab_sample_step", "lstm_seq_fwd",
+             "lstm_seq_bwd", "conv1_pool_bwd")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kernels[n][k] for k in keys} for n in order]}))

@@ -1,13 +1,13 @@
 """Typed configuration tree for the PyTorch port.
 
 A copy of the schema of ``img2latex_tpu/config.py`` cut to the sections the
-port reads: data, model (encoder, decoder), inference, preprocessing and the
-compute-type settings of ``hardware``.  Keys this schema does not know are
+port reads: data, model (encoder, decoder), training, evaluation, inference,
+preprocessing and the compute-type settings of ``hardware``.  Keys this schema does not know are
 ignored by :func:`config_from_dict` (``strict=False``), so a config dict
 written by the JAX package loads unchanged.
 
 YAML is read only by :func:`load_config`, which imports ``yaml`` inside the
-function: nothing on the inference path needs it.
+function: nothing on the inference or training path needs it.
 """
 
 from __future__ import annotations
@@ -20,7 +20,19 @@ from typing import Any, Dict, List, Optional, Tuple
 
 @dataclass
 class DataConfig:
+    data_dir: str = "data"
+    train_file: str = "im2latex_train_filter.lst"
+    validate_file: str = "im2latex_validate_filter.lst"
+    test_file: str = "im2latex_test_filter.lst"
+    formulas_file: str = "im2latex_formulas.norm.lst"
+    img_dir: str = "img"
+    batch_size: int = 128
+    num_workers: int = 0
     max_seq_length: int = 141
+    log_frequency: int = 1000  # train steps between the host's reads of the metrics
+    eval_batch_size_multiplier: int = 2
+    max_eval_batch_size: int = 128
+    device_prefetch: int = 2  # batches the host loader prepares ahead
 
 
 @dataclass
@@ -42,6 +54,7 @@ class EncoderConfig:
 class DecoderConfig:
     hidden_dim: int = 512
     lstm_layers: int = 2
+    dropout: float = 0.3  # training only: between LSTM layers, on embeddings and LSTM outputs
     attention: bool = True  # additive attention over grid memory (S > 1)
 
 
@@ -52,6 +65,30 @@ class ModelConfig:
     embedding_dim: int = 512
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
     memory: str = "vector"  # "vector" (one embedding) | "grid" (one slot per feature column)
+
+
+@dataclass
+class TrainingConfig:
+    optimizer: str = "adam"
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-4  # L2 added into the gradient (torch Adam), not decoupled
+    epochs: int = 30
+    early_stopping_patience: int = 10
+    clip_grad_norm: float = 5.0
+    save_checkpoint_epochs: int = 5
+    save_checkpoint_steps: Optional[int] = None
+    experiment_name: str = "img2latex_v1"
+    accumulation_steps: int = 1
+    label_smoothing: float = 0.1
+    lr_plateau_factor: float = 0.5
+    lr_plateau_patience: int = 2
+    seed: int = 42
+
+
+@dataclass
+class EvaluationConfig:
+    bleu_n: int = 4
+    bleu_batches: int = 10  # validation batches whose teacher-forced argmax feeds BLEU and Levenshtein
 
 
 @dataclass
@@ -89,6 +126,8 @@ class HardwareConfig:
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
+    evaluation: EvaluationConfig = field(default_factory=EvaluationConfig)
     inference: InferenceConfig = field(default_factory=InferenceConfig)
     preprocessing: PreprocessingConfig = field(default_factory=PreprocessingConfig)
     hardware: HardwareConfig = field(default_factory=HardwareConfig)
@@ -178,6 +217,10 @@ def validate_config(cfg: Config) -> None:
         raise ValueError(f"model.memory must be vector or grid, got {cfg.model.memory!r}")
     if cfg.data.max_seq_length < 3:
         raise ValueError("data.max_seq_length must be >= 3 (START + token + END)")
+    if cfg.training.accumulation_steps < 1:
+        raise ValueError("training.accumulation_steps must be >= 1")
+    if not 0.0 <= cfg.training.label_smoothing < 1.0:
+        raise ValueError("training.label_smoothing must be in [0, 1)")
     if cfg.inference.beam_size < 0:
         raise ValueError("inference.beam_size must be >= 0")
     from img2latex_tpu_torch.decoding.decode import parse_signal

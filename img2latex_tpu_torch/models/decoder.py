@@ -7,6 +7,12 @@
   top-layer h over the memory, then steps the LSTM on ``[emb; context]``.
   The step-invariant memory half of the attention, ``U = m @ W_m + b``, is
   computed once (:meth:`LSTMDecoder.memory_proj`) and passed to every step.
+
+With ``train=True`` dropout applies where flax applies it: on the
+embeddings and on the LSTM outputs before ``out``, and between LSTM layers
+(per step inside the cell for grid memory).  The grid teacher-forced pass
+has no Pallas kernel in the JAX package (an ``nn.scan`` over cell steps), so
+it is a plain loop of cell steps here too.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from img2latex_tpu_torch.models.lstm import Carry, StackedLSTM
+from img2latex_tpu_torch.models.lstm import Carry, StackedLSTM, dropout
 
 
 class AdditiveAttention(nn.Module):
@@ -59,13 +65,15 @@ class DecoderCell(nn.Module):
     """One decode step: embed -> attend (grid memory) -> LSTM step -> vocab projection."""
 
     def __init__(self, vocab_size: int, embedding_dim: int, hidden_dim: int,
-                 lstm_layers: int = 1, use_attention: bool = True,
+                 lstm_layers: int = 1, use_attention: bool = True, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.use_attention = use_attention
+        self.dropout = dropout
         self.embedding = nn.Embedding(vocab_size, embedding_dim)
-        self.lstm = StackedLSTM(2 * embedding_dim, hidden_dim, lstm_layers, dtype=dtype)
+        self.lstm = StackedLSTM(2 * embedding_dim, hidden_dim, lstm_layers, dropout=dropout,
+                                dtype=dtype)
         if use_attention:
             self.attention = AdditiveAttention(hidden_dim, embedding_dim, hidden_dim, dtype=dtype)
         self.out = nn.Linear(hidden_dim, vocab_size)
@@ -76,46 +84,61 @@ class DecoderCell(nn.Module):
     def project(self, y: torch.Tensor) -> torch.Tensor:
         return F.linear(y, self.out.weight.to(self.dtype), self.out.bias.to(self.dtype))
 
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Embedding rows of ``tokens`` in the compute type.  ``F.embedding``'s
+        backward sums the rows' gradients by token; the backward of an index
+        (``weight[tokens]``) is a sort-based kernel that took 8.6 ms of a
+        64.5 ms train step at ``bench_train.py``'s shapes (NVIDIA H100 80GB
+        HBM3, 700 W; ``chip_smoke.py``'s profile)."""
+        return F.embedding(tokens.long(), self.embedding.weight.to(self.dtype))
+
+    def drop(self, x: torch.Tensor, train: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
+        return dropout(x, self.dropout, generator) if train else x
+
     def forward(self, carry: Carry, token: torch.Tensor, memory: torch.Tensor,
-                mem_proj: Optional[torch.Tensor] = None):
+                mem_proj: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """token (B,) -> (new carry, logits (B, V))."""
-        emb = self.embedding.weight.to(self.dtype)[token.long()]
+        emb = self.drop(self.embed(token), train, generator)
         if self.attends(memory):
             context, _ = self.attention(carry[0][-1], memory, mem_proj=mem_proj)
         else:
             context = memory[:, 0, :].to(self.dtype)
-        y, new_carry = self.lstm.step(torch.cat([emb, context], dim=-1), carry)
-        return new_carry, self.project(y)
+        y, new_carry = self.lstm.step(torch.cat([emb, context], dim=-1), carry, train, generator)
+        return new_carry, self.project(self.drop(y, train, generator))
 
 
 class LSTMDecoder(nn.Module):
     """Teacher-forced sequences and single-step decode."""
 
     def __init__(self, vocab_size: int, embedding_dim: int = 512, hidden_dim: int = 512,
-                 lstm_layers: int = 1, use_attention: bool = True,
+                 lstm_layers: int = 1, use_attention: bool = True, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.embedding_dim, self.hidden_dim, self.lstm_layers = embedding_dim, hidden_dim, lstm_layers
         self.dtype = dtype
         self.cell = DecoderCell(vocab_size, embedding_dim, hidden_dim, lstm_layers,
-                                use_attention=use_attention, dtype=dtype)
+                                use_attention=use_attention, dropout=dropout, dtype=dtype)
 
     def init_carry(self, batch_size: int, device=None) -> Carry:
         return self.cell.lstm.init_carry(batch_size, device)
 
-    def forward(self, memory: torch.Tensor, target_sequence: torch.Tensor) -> torch.Tensor:
+    def forward(self, memory: torch.Tensor, target_sequence: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """memory (B, S, E), target_sequence (B, T) input tokens -> logits (B, T, V)."""
         B, T = target_sequence.shape
-        if not self.cell.attends(memory):
-            emb = self.cell.embedding.weight.to(self.dtype)[target_sequence.long()]  # (B, T, E)
+        cell = self.cell
+        if not cell.attends(memory):
+            emb = cell.embed(target_sequence)  # (B, T, E)
+            emb = cell.drop(emb, train, generator)
             context = memory[:, 0, :].to(self.dtype)[:, None, :].expand(B, T, self.embedding_dim)
-            ys, _ = self.cell.lstm(torch.cat([emb, context], dim=-1))
-            return self.cell.project(ys)
+            ys, _ = cell.lstm(torch.cat([emb, context], dim=-1), train=train, generator=generator)
+            return cell.project(cell.drop(ys, train, generator))
         mem_proj = self.memory_proj(memory)
         carry = self.init_carry(B, memory.device)
         logits = []
         for t in range(T):
-            carry, step_logits = self.cell(carry, target_sequence[:, t], memory, mem_proj)
+            carry, step_logits = cell(carry, target_sequence[:, t], memory, mem_proj, train, generator)
             logits.append(step_logits)
         return torch.stack(logits, dim=1)
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``img2latex_tpu/models/seq2seq.py``.  ``forward`` is the
 teacher-forced pass (inputs ``targets[:, :-1]``, logits over the shifted
-sequence); ``encode`` and ``decode_step`` serve the decode loops.
+sequence; ``train=True`` turns dropout on); ``encode`` and ``decode_step``
+serve the decode loops.  :func:`build_model` returns the model in eval mode:
+training passes ``train=True`` explicitly.
 """
 
 from __future__ import annotations
@@ -32,9 +34,12 @@ class Seq2SeqModel(nn.Module):
         out = self.encoder(images)
         return out[:, None, :] if out.dim() == 2 else out
 
-    def forward(self, images: torch.Tensor, target_sequences: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced logits (B, T-1, V) for inputs ``target_sequences[:, :-1]``."""
-        return self.decoder(self.encode(images), target_sequences[:, :-1])
+    def forward(self, images: torch.Tensor, target_sequences: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Teacher-forced logits (B, T-1, V) for inputs ``target_sequences[:, :-1]``;
+        ``train`` applies dropout, drawn from ``generator``."""
+        return self.decoder(self.encode(images), target_sequences[:, :-1], train=train,
+                            generator=generator)
 
     def decode_step(self, memory: torch.Tensor, token: torch.Tensor, carry: Carry,
                     mem_proj: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Carry]:
@@ -98,6 +103,7 @@ def build_model(cfg: Config, vocab_size: int, device: Optional[str] = None,
         lstm_layers=cfg.model.decoder.lstm_layers,
         # vector memory never attends, and flax creates no attention leaves for it
         use_attention=cfg.model.decoder.attention and cfg.model.memory == "grid",
+        dropout=cfg.model.decoder.dropout,
         dtype=dtype,
     )
     model = Seq2SeqModel(encoder, decoder)

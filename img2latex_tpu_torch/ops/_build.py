@@ -26,6 +26,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
@@ -57,6 +59,12 @@ SIGNATURES = {
     "i2l_vocab_sample_step": [P] * 7 + [I] * 9 + [F, I, I, P],
     # B, H, Vp, top_p_on -> floats of device-memory scratch
     "i2l_vocab_sample_step_scratch": [I] * 4,
+    # gx, h_prev, c_prev, w_t, ys, cs, ga, B, H, dtype, stream
+    "i2l_lstm_seq_fwd_step": [P] * 7 + [I] * 3 + [P],
+    # dgx_next, w, dy, ga, cs, c_prev, dc, dgx, dh0, dc0, B, H, dtype, stream
+    "i2l_lstm_seq_bwd_step": [P] * 10 + [I] * 3 + [P],
+    # dgx, h0, ys, partial, dw, M, B, H, nsplit, dtype, stream
+    "i2l_lstm_seq_dw": [P] * 5 + [I] * 5 + [P],
 }
 # Return types other than int (a CUDA error code).
 RESTYPES = {"i2l_beam_step_scratch": ctypes.c_longlong, "i2l_vocab_sample_step_scratch": ctypes.c_longlong}
@@ -144,6 +152,17 @@ def lib() -> ctypes.CDLL:
             handle.i2l_error_string.restype = ctypes.c_char_p
             _lib = handle
     return _lib
+
+
+def check_no_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when autograd would record a call to a kernel that has no
+    backward: grad mode on and an input that requires grad.  The kernels
+    write their outputs where autograd does not see them, so the gradient
+    would be silently wrong; differentiating a ``pallas_call`` without a VJP
+    fails in JAX too."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward: call it under torch.no_grad() or on "
+                           "tensors that do not require grad")
 
 
 def check(err: int, name: str) -> None:

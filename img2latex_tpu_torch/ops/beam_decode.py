@@ -103,6 +103,7 @@ def beam_step(h, w_out, b_out, scores, finished, tokens, tok_hist, par_hist, t: 
     receive column ``t``, and ``h_dst``, ``c_dst`` (L, N, H) receive the
     carries ``h_src``, ``c_src`` reindexed by each new beam's parent."""
     _check_beam(K)
+    _build.check_no_grad("beam_step", h, w_out, b_out, h_src, c_src)
     if h.device.type == "cpu":
         return beam_step_plain(h, w_out, b_out, scores, finished, tokens, tok_hist, par_hist, t, K,
                                end_id, pad_id, h_src, h_dst, c_src, c_dst)

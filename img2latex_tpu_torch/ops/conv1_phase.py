@@ -8,6 +8,14 @@ Replaces the TPU kernel ``img2latex_tpu/ops/pallas/conv1_phase.py::fused_conv1_p
 Layouts: the input is NHWC ``(B, H, W, 1)``, as in the JAX package; the
 output is NCHW ``(B, Cout, H/2, W/2)``, which is what the next block's
 ``conv2d`` takes (the JAX kernel's ``layout="nchw"``).
+
+:func:`conv1_pool` is a ``torch.autograd.Function``: its forward is the
+kernel (or, for CPU tensors, the plain version), its backward is autograd of
+:func:`conv1_pool_plain` at the same inputs, recomputing the forward.  That is
+what the JAX custom VJP does (``conv1_phase.py:248-285``: ``_conv1_pool_bwd``
+linearizes ``_xla_conv1_pool``); the JAX package has no Pallas backward for
+this op, so the backward here is eager PyTorch (cuDNN's convolution
+gradients on the card), not a kernel of its own.
 """
 
 from __future__ import annotations
@@ -30,12 +38,10 @@ def conv1_pool_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) 
     return F.max_pool2d(F.relu(y), 2).to(x.dtype)
 
 
-def conv1_pool(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """x (B, H, W, 1) NHWC, weight (Cout, 1, 3, 3), bias (Cout,) ->
-    (B, Cout, H/2, W/2) NCHW in ``x.dtype``.
-
-    A CUDA tensor goes through the kernel, a CPU tensor through
-    :func:`conv1_pool_plain`."""
+def conv1_pool_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The forward alone: a CUDA tensor goes through the kernel, a CPU tensor
+    through :func:`conv1_pool_plain`.  Not differentiable: the kernel writes
+    its output where autograd does not see it."""
     if x.device.type == "cpu":
         return conv1_pool_plain(x, weight, bias)
     if x.device.type != "cuda":
@@ -68,4 +74,34 @@ def conv1_pool(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> tor
     return out
 
 
-conv1_pool.launches = 0
+class _Conv1Pool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight, bias)
+        return conv1_pool_fwd(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight, bias = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in zip((x, weight, bias), needs)]
+            out = conv1_pool_plain(*leaves)
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad) if wanted else ())
+        conv1_pool.backward_calls += 1
+        return tuple(next(grads) if need else None for need in needs)
+
+
+def conv1_pool(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """x (B, H, W, 1) NHWC, weight (Cout, 1, 3, 3), bias (Cout,) ->
+    (B, Cout, H/2, W/2) NCHW in ``x.dtype``, differentiable in all three.
+
+    The forward goes through the kernel for a CUDA tensor and through
+    :func:`conv1_pool_plain` for a CPU tensor; the backward is autograd of
+    :func:`conv1_pool_plain`, recomputing the forward."""
+    return _Conv1Pool.apply(x, weight, bias)
+
+
+conv1_pool.launches = 0  # launches of the kernel, counted by conv1_pool_fwd
+conv1_pool.backward_calls = 0  # eager backward passes

@@ -133,6 +133,7 @@ def lstm_layer_step(tokens, emb, x1, h_in, w_ih, w_hh, b, c, h_out) -> None:
     ``gates = x @ w_ih + h_in @ w_hh + b`` with float32 sums; ``c`` (B, H) is
     updated in place, the new h goes to ``h_out`` (B, H), which must not
     alias ``h_in``.  Both are stored in the compute type."""
+    _build.check_no_grad("lstm_layer_step", emb, x1, h_in, w_ih, w_hh, b, c)
     if x1.device.type == "cpu":
         return lstm_layer_step_plain(tokens, emb, x1, h_in, w_ih, w_hh, b, c, h_out)
     if x1.device.type != "cuda":
@@ -208,6 +209,7 @@ def vocab_argmax_step(h, w_out, b_out, tokens, finished, out, t: int,
     goes to ``tokens`` (B,) and, with ``out`` (B, T), to ``out[:, t]``.
     With ``score`` (B,) float32, the step's ``signal`` (``decoding.decode.step_signal``)
     is added to it on the rows not finished before this step."""
+    _build.check_no_grad("vocab_argmax_step", h, w_out, b_out, score)
     if h.device.type == "cpu":
         return vocab_argmax_step_plain(h, w_out, b_out, tokens, finished, out, t, end_id, pad_id,
                                        score=score, signal=signal)
@@ -400,6 +402,7 @@ def vocab_sample_step(h, w_out, b_out, tokens, finished, out, t: int, end_id: in
     if top_k < 0 or not top_p >= 0.0 or (top_k == 0 and top_p == 0.0) or batch_tile < 1:
         raise ValueError(f"vocab_sample_step: top_k {top_k}, top_p {top_p}, batch_tile {batch_tile}: "
                          "one filter must be on and the tile positive")
+    _build.check_no_grad("vocab_sample_step", h, w_out, b_out)
     if h.device.type == "cpu":
         return vocab_sample_step_plain(h, w_out, b_out, tokens, finished, out, t, end_id, pad_id,
                                        seed, top_k, top_p, batch_tile)

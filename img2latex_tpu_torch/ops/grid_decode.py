@@ -118,6 +118,7 @@ def attend_step(h, w_h, v, u, mem, ctx, hw=None, rows_per_mem: int = 1) -> torch
     beams of a sample share its memory with ``rows_per_mem = K``.  ``hw``
     (B, A) is scratch for ``h @ W_h``, allocated here when not given.
     Returns ``ctx``."""
+    _build.check_no_grad("attend_step", h, w_h, v, u, mem)
     if h.device.type == "cpu":
         return attend_step_plain(h, w_h, v, u, mem, ctx, rows_per_mem=rows_per_mem)
     if h.device.type != "cuda":

@@ -23,10 +23,11 @@ on (``top_k`` or ``top_p`` above 0 at a positive temperature) and no beam,
 the batch is drawn by the vector or grid sampling decode (the same kernels
 with the vocab-sample kernel in place of the argmax) from the kernel seed
 of the batch (:func:`batch_seed`); with beam on, the sampling settings are
-ignored, as the JAX package's beam ignores them.  ``from_checkpoint`` is not
-ported yet (the JAX package's checkpoints are Orbax directories); load
-weights with :func:`img2latex_tpu_torch.bridge.load_flax_params` or
-``model.load_state_dict``.
+ignored, as the JAX package's beam ignores them.  :meth:`Predictor.from_checkpoint`
+rebuilds config, tokenizer and model from a checkpoint of the port's trainer
+(:mod:`img2latex_tpu_torch.utils.checkpoint`); a JAX package's Orbax
+checkpoint is not read (load flax weights with
+:func:`img2latex_tpu_torch.bridge.load_flax_params`).
 """
 
 from __future__ import annotations
@@ -38,11 +39,11 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from img2latex_tpu_torch.config import Config
+from img2latex_tpu_torch.config import Config, config_from_dict, set_by_path, validate_config
 from img2latex_tpu_torch.data.tokenizer import LaTeXTokenizer
 from img2latex_tpu_torch.data.transforms import prepare_image_u8
 from img2latex_tpu_torch.decoding.decode import DecodeConfig, select_uncertain, trim_host
-from img2latex_tpu_torch.models.seq2seq import Seq2SeqModel
+from img2latex_tpu_torch.models.seq2seq import Seq2SeqModel, build_model
 from img2latex_tpu_torch.ops.beam_decode import beam_decode
 from img2latex_tpu_torch.ops.decode_step import greedy_decode, pack_decoder_weights, sample_decode
 from img2latex_tpu_torch.ops.grid_decode import (
@@ -53,6 +54,7 @@ from img2latex_tpu_torch.ops.grid_decode import (
     pack_attention_weights,
 )
 from img2latex_tpu_torch.ops.preprocess import normalize_images
+from img2latex_tpu_torch.utils import checkpoint as ckpt_lib
 from img2latex_tpu_torch.utils.device import resolve_device, torch_dtype
 
 
@@ -78,6 +80,31 @@ class Predictor:
         self.dtype = torch_dtype(cfg.hardware.compute_dtype)
         self._packed: Optional[Dict[str, Any]] = None
         self._packed_att: Optional[Dict[str, Any]] = None
+
+    @classmethod
+    def from_checkpoint(cls, path: str, step: Optional[int] = None, batch_size: int = 16,
+                        device: Optional[str] = None,
+                        config_overrides: Optional[Dict[str, Any]] = None) -> "Predictor":
+        """Rebuild config, tokenizer, model and weights from one checkpoint
+        directory of the port's trainer (the contract of the JAX package's
+        ``Predictor.from_checkpoint``): ``path`` is a checkpoint directory (its
+        ``best`` step, else the latest), a ``step_N`` directory, or a directory
+        holding ``checkpoints/``.  ``config_overrides`` maps dotted config
+        paths to values set on the checkpoint's config."""
+        ckpt_dir, found_step = ckpt_lib.resolve_checkpoint_path(path)
+        if step is None:
+            step = found_step if found_step is not None else -1
+        state, meta = ckpt_lib.restore_checkpoint(ckpt_dir, step)
+        if "config" not in meta or "tokenizer_config" not in meta:
+            raise ValueError(f"Checkpoint at {path} lacks config/tokenizer sidecars")
+        cfg = config_from_dict(meta["config"])
+        for dotted, value in (config_overrides or {}).items():
+            set_by_path(cfg, dotted, value)
+        validate_config(cfg)
+        tokenizer = LaTeXTokenizer.from_config(meta["tokenizer_config"])
+        model = build_model(cfg, tokenizer.vocab_size, device=device)
+        model.load_state_dict(state["model"])
+        return cls(cfg, model, tokenizer, batch_size=batch_size, device=device)
 
     def packed_decoder(self) -> Dict[str, Any]:
         """The decode kernels' weights, packed once per Predictor."""

@@ -8,7 +8,11 @@ finished, one beam, a ragged last block of samples, beams wider than a
 block's 16 rows and a sample whose logits spill to device memory; attention
 over memories shared by several rows; the sampling step with top-k at or
 beyond the vocab, all mass on one token, finished rows, a vocab whose
-logits spill to device memory, and whole sampling decodes) at small sizes.
+logits spill to device memory, and whole sampling decodes; the training
+LSTM's forward and backward with an odd batch, one step, a hidden width that
+is not a multiple of the tile, zero and random initial states, and its
+gradients against a float64 plain layer; conv1_pool's backward; the kernels
+without a backward refusing inputs that require grad) at small sizes.
 Marked ``cuda``: without a CUDA device every test skips.  Imports no JAX, so
 it runs on the card's machine with
 
@@ -21,6 +25,7 @@ import torch
 
 from img2latex_tpu_torch.decoding.decode import DecodeConfig
 from img2latex_tpu_torch.ops.conv1_phase import conv1_pool, conv1_pool_plain
+from img2latex_tpu_torch.ops import lstm_train as lt
 from img2latex_tpu_torch.ops import beam_decode as bd
 from img2latex_tpu_torch.ops import decode_step as ds
 from img2latex_tpu_torch.ops import grid_decode as ds_grid
@@ -572,3 +577,111 @@ def test_sample_decode_ragged(dev, kind, B, kw):
         assert gaps[r, first[r]].item() <= 1e-4 or mass[r, first[r]].item() <= 1e-5, (r, first[r])
     assert diff.any(axis=1).mean() <= 0.1
     assert torch.equal(run(kernel, early_exit=True), got)
+
+
+def _lstm_op(dev, dtype, T, B, H, seed, zero_state=False):
+    rng = np.random.default_rng(seed)
+    op = {"gx": _t(rng.normal(size=(T, B, 4 * H)), dev, dtype),
+          "h0": _t(rng.uniform(-1, 1, (B, H)), dev, dtype), "c0": _t(rng.uniform(-1, 1, (B, H)), dev, dtype),
+          "w": _t(rng.normal(size=(4 * H, H)) / np.sqrt(H), dev, dtype),
+          "cts": [_t(rng.normal(size=s), dev, dtype) for s in ((T, B, H), (B, H), (B, H))]}
+    if zero_state:
+        op["h0"].zero_()
+        op["c0"].zero_()
+    return op
+
+
+def _lstm_run(fn, op, dtype=None):
+    """(ys, hT, cT, dgates_x, dh0, dc0, dW_hh) of fn under op's cotangents, in ``dtype``."""
+    leaves = [op[k].to(dtype or op[k].dtype).clone().requires_grad_() for k in ("gx", "h0", "c0", "w")]
+    outs = fn(*leaves)
+    grads = torch.autograd.grad(outs, leaves, [c.to(leaves[0].dtype) for c in op["cts"]])
+    return [o.detach().double() for o in outs] + [g.double() for g in grads]
+
+
+def _rel(got, ref):
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", [(7, 5, 40), (1, 3, 64), (9, 70, 33), (4, 130, 96)])
+@pytest.mark.parametrize("zero_state", [False, True])
+def test_lstm_seq(dev, dtype, T, B, H, zero_state):
+    """Kernel forward and backward against lstm_seq_fwd_plain / lstm_seq_bwd_plain
+    (the same rounding points): float32 sums in another order (1e-5 of the
+    largest value); in bf16 a stored value may round the other way (2^-6)."""
+    op = _lstm_op(dev, dtype, T, B, H, seed=T + B + H, zero_state=zero_state)
+    n_f, n_b = lt.lstm_seq_fwd.launches, lt.lstm_seq_bwd.launches
+    got = _lstm_run(lt.lstm_seq, op)
+    assert lt.lstm_seq_fwd.launches - n_f == T and lt.lstm_seq_bwd.launches - n_b == T + 3
+    ys, cs, ga = lt.lstm_seq_fwd_plain(op["gx"], op["h0"], op["c0"], op["w"].t().contiguous())
+    ref = [ys, ys[-1], cs[-1], *lt.lstm_seq_bwd_plain(*op["cts"], ga, cs, op["h0"], op["c0"], ys, op["w"])]
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-6
+    for g, r in zip(got, ref):
+        assert _rel(g, r.double()) <= tol
+
+
+@pytest.mark.parametrize("T,B,H", [(6, 5, 24), (3, 33, 40)])
+def test_lstm_seq_gradient_against_float64(dev, T, B, H):
+    """The kernel's float32 outputs and gradients against lstm_seq_plain in
+    float64 (autograd of the plain layer): within 1e-4 of the largest value,
+    float32 rounding over T steps."""
+    op = _lstm_op(dev, torch.float32, T, B, H, seed=11 * T + B)
+    got = _lstm_run(lt.lstm_seq, op)
+    ref = _lstm_run(lt.lstm_seq_plain, op, dtype=torch.float64)
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv1_pool_backward(dev, dtype):
+    """conv1_pool's backward (autograd of the plain version, recomputing the
+    forward) equals autograd of conv1_pool_plain."""
+    rng = np.random.default_rng(5)
+    x = _t(rng.uniform(-1, 1, (3, 6, 10, 1)), dev, dtype)
+    w, b = _t(rng.normal(size=(5, 1, 3, 3)) / 3, dev), _t(rng.normal(size=5) * 0.1, dev)
+    g = _t(rng.normal(size=(3, 5, 3, 5)), dev, dtype)
+    grads = []
+    for fn in (conv1_pool, conv1_pool_plain):
+        leaves = [x.clone().requires_grad_(), w.clone().requires_grad_(), b.clone().requires_grad_()]
+        grads.append(torch.autograd.grad(fn(*leaves), leaves, g))
+    for a, r in zip(*grads):
+        torch.testing.assert_close(a, r, atol=1e-5, rtol=1e-5)
+    assert grads[0][1].abs().max().item() > 0
+
+
+def test_kernels_without_backward_refuse_grad(dev):
+    """lstm_layer_step, vocab_argmax_step, attend_step, beam_step and
+    vocab_sample_step have no backward: given an input that requires grad
+    with grad mode on, each raises before it launches."""
+    B, H, Vp, S, E = 4, 32, 128, 3, 16
+    h = torch.zeros(B, H, device=dev, requires_grad=True)
+    w = torch.zeros(H, 4 * H, device=dev)
+    b = torch.zeros(4 * H, device=dev)
+    tok = torch.zeros(B, dtype=torch.int32, device=dev)
+    w_out, b_out = torch.zeros(H, Vp, device=dev), torch.zeros(Vp, device=dev)
+    fin = torch.zeros(B, dtype=torch.int32, device=dev)
+    calls = {
+        "lstm_layer_step": lambda: ds.lstm_layer_step(None, None, h, h.detach().clone(), w, w, b,
+                                                      torch.zeros(B, H, device=dev),
+                                                      torch.zeros(B, H, device=dev)),
+        "vocab_argmax_step": lambda: ds.vocab_argmax_step(h, w_out, b_out, tok, fin, None, 0, 2, 0),
+        "vocab_sample_step": lambda: ds.vocab_sample_step(h, w_out, b_out, tok, fin, None, 0, 2, 0, top_k=5),
+        "attend_step": lambda: ds_grid.attend_step(h, torch.zeros(H, E, device=dev), torch.zeros(E, device=dev),
+                                                   torch.zeros(B, S, E, device=dev), torch.zeros(B, S, E, device=dev),
+                                                   torch.zeros(B, E, device=dev)),
+    }
+    for name, call in calls.items():
+        before = {k: getattr(m, k).launches for m, k in ((ds, "lstm_layer_step"), (ds, "vocab_argmax_step"),
+                                                          (ds, "vocab_sample_step"), (ds_grid, "attend_step"))}
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        after = {k: getattr(m, k).launches for m, k in ((ds, "lstm_layer_step"), (ds, "vocab_argmax_step"),
+                                                         (ds, "vocab_sample_step"), (ds_grid, "attend_step"))}
+        assert after == before, name
+    op = _beam_operands(dev, torch.float32, 2, 2, H, Vp, 1, seed=0)
+    op["h"].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        _run_beam_step(bd.beam_step, op, 2)
+    with torch.no_grad():
+        ds.vocab_argmax_step(h, w_out, b_out, tok, fin, None, 0, 2, 0)  # under no_grad it runs
