@@ -25,7 +25,15 @@ four filter settings, its draws against ``next_token_probs`` (chi-square),
 the whole sampling decode of both kinds step by step against the plain
 version (and three deliberately broken samplers that must fail that rule),
 with early exit, and grid ``predict_batch`` at temperature 0.8, top-k 10,
-top-p 0.9.
+top-p 0.9.  Then training at ``bench_train.py``'s shapes (phases 13-17).
+Then the channel-first encoder chain (``hardware.pallas_chain``, phases
+18-20): the conv-pool kernel alone in both layouts (``convblock_cf``,
+``fused_conv_relu_pool``) and conv1_pool's NHWC output against their plain
+versions; ``predict_batch`` on the chain for both memory kinds (grid also
+beam-5 and sampling) against the plain path, with the chain off beside it,
+and two broken ``convblock_cf`` that must fail; ``convblock_cf``'s backward,
+a train step on the chain against the plain path, and phase 16's checkpoint
+loaded with ``use_pallas_chain=True``.
 
 Prints its findings on earlier lines, then a ``{"kernels": [...]}`` line,
 the card's name and power limit from nvidia-smi, and last
@@ -1458,20 +1466,22 @@ def train_config(memory: str = "vector"):
 
 @contextlib.contextmanager
 def plain_path():
-    """Run the model's training path through the plain versions: lstm_seq_plain
-    for the LSTM recurrence and conv1_pool_plain for block 0.  Only the
-    reference runs of this script ask for it."""
+    """Run the model through the plain versions: lstm_seq_plain for the LSTM
+    recurrence, conv1_pool_plain for block 0 and convblock_cf_plain for the
+    channel-first chain's blocks.  Only the reference runs of this script
+    ask for it."""
     from img2latex_tpu_torch.models import encoder as enc_mod
     from img2latex_tpu_torch.models import lstm as lstm_mod
     from img2latex_tpu_torch.ops.conv1_phase import conv1_pool_plain
+    from img2latex_tpu_torch.ops.conv_cf import convblock_cf_plain
     from img2latex_tpu_torch.ops.lstm_train import lstm_seq_plain
 
-    saved = enc_mod.conv1_pool, lstm_mod.lstm_seq
-    enc_mod.conv1_pool, lstm_mod.lstm_seq = conv1_pool_plain, lstm_seq_plain
+    saved = enc_mod.conv1_pool, enc_mod.convblock_cf, lstm_mod.lstm_seq
+    enc_mod.conv1_pool, enc_mod.convblock_cf, lstm_mod.lstm_seq = conv1_pool_plain, convblock_cf_plain, lstm_seq_plain
     try:
         yield
     finally:
-        enc_mod.conv1_pool, lstm_mod.lstm_seq = saved
+        enc_mod.conv1_pool, enc_mod.convblock_cf, lstm_mod.lstm_seq = saved
 
 
 def rel_err(got, ref) -> float:
@@ -1807,11 +1817,13 @@ def phase_train_step(dev, card: str, cfg, steps: int = TRAIN_STEPS_TIMED) -> Non
         f"{_time_gemm(dev, T * B, 2 * E, 4 * H) + _time_gemm(dev, T * B, H, 4 * H):.3f} ms [{card}]")
 
 
-def phase_trainer(dev, card: str, cfg, tokenizer, kernels: dict, epochs: int = 2, steps_per_epoch: int = 4) -> None:
+def phase_trainer(dev, card: str, cfg, tokenizer, kernels: dict, tmp: str, epochs: int = 2,
+                  steps_per_epoch: int = 4):
     """Trainer.train() for two short epochs on a repeated synthetic batch (the
     main path of the training slice: the kernels' counts are read around
-    it), then a checkpoint that Predictor.from_checkpoint loads and decodes
-    with, giving the trained model's ids."""
+    it), then a checkpoint under ``tmp`` that Predictor.from_checkpoint loads
+    and decodes with, giving the trained model's ids.  Returns the
+    checkpoint's step directory and the batch."""
     import torch
 
     from img2latex_tpu_torch.ops.conv1_phase import conv1_pool
@@ -1826,46 +1838,46 @@ def phase_trainer(dev, card: str, cfg, tokenizer, kernels: dict, epochs: int = 2
     tcfg.evaluation.bleu_batches = 1
     batch = _train_batch(tcfg, seed=SEED + 1)
     loaders = {"train": [batch] * steps_per_epoch, "validate": [batch]}
-    with tempfile.TemporaryDirectory(dir=str(_build_dir())) as tmp:
-        trainer = Trainer(tcfg, tokenizer, loaders, paths=PathManager(tmp))  # on the card: no device named
-        before = trainer.eval_step(trainer.state, batch)["loss"].item()
-        torch.cuda.synchronize()
-        lstm_seq_fwd.launches = lstm_seq_bwd.launches = conv1_pool.launches = conv1_pool.backward_calls = 0
-        t0 = time.perf_counter()
-        result = trainer.train()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"lstm_seq_fwd": lstm_seq_fwd.launches, "lstm_seq_bwd": lstm_seq_bwd.launches,
-                    "conv1_pool": conv1_pool.launches, "conv1_pool_bwd": conv1_pool.backward_calls}
-        hist = result["history"]
-        losses = [hist[e]["train_loss"] for e in sorted(hist)]
-        val = [hist[e]["val_loss"] for e in sorted(hist)]
-        log(f"Trainer.train(): {epochs} epochs of {steps_per_epoch} steps (B={TRAIN_BATCH}, "
-            f"{tcfg.hardware.compute_dtype}) in {wall:.2f} s; "
-            f"val loss before {before:.4f}, train loss by epoch {losses}, val loss {val}, val BLEU "
-            f"{hist[max(hist)]['val_bleu']:.4f}, {hist[max(hist)]['train_images_per_sec']:.1f} images/s in the last "
-            f"epoch; launches {json.dumps(launches)} [{card}]")
-        for name in ("lstm_seq_fwd", "lstm_seq_bwd", "conv1_pool_bwd"):
-            check(launches[name] > 0, f"{name} was not run on the training path")
-            kernels[name]["launches"] = launches[name]
-        check(launches["conv1_pool"] > 0, "conv1_pool was not launched on the training path")
-        check(all(np.isfinite(losses + val)), "Trainer: non-finite loss")
-        check(val[-1] < before and losses[-1] < losses[0], "Trainer: the loss on the repeated batch did not fall")
+    trainer = Trainer(tcfg, tokenizer, loaders, paths=PathManager(tmp))  # on the card: no device named
+    before = trainer.eval_step(trainer.state, batch)["loss"].item()
+    torch.cuda.synchronize()
+    lstm_seq_fwd.launches = lstm_seq_bwd.launches = conv1_pool.launches = conv1_pool.backward_calls = 0
+    t0 = time.perf_counter()
+    result = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"lstm_seq_fwd": lstm_seq_fwd.launches, "lstm_seq_bwd": lstm_seq_bwd.launches,
+                "conv1_pool": conv1_pool.launches, "conv1_pool_bwd": conv1_pool.backward_calls}
+    hist = result["history"]
+    losses = [hist[e]["train_loss"] for e in sorted(hist)]
+    val = [hist[e]["val_loss"] for e in sorted(hist)]
+    log(f"Trainer.train(): {epochs} epochs of {steps_per_epoch} steps (B={TRAIN_BATCH}, "
+        f"{tcfg.hardware.compute_dtype}) in {wall:.2f} s; "
+        f"val loss before {before:.4f}, train loss by epoch {losses}, val loss {val}, val BLEU "
+        f"{hist[max(hist)]['val_bleu']:.4f}, {hist[max(hist)]['train_images_per_sec']:.1f} images/s in the last "
+        f"epoch; launches {json.dumps(launches)} [{card}]")
+    for name in ("lstm_seq_fwd", "lstm_seq_bwd", "conv1_pool_bwd"):
+        check(launches[name] > 0, f"{name} was not run on the training path")
+        kernels[name]["launches"] = launches[name]
+    check(launches["conv1_pool"] > 0, "conv1_pool was not launched on the training path")
+    check(all(np.isfinite(losses + val)), "Trainer: non-finite loss")
+    check(val[-1] < before and losses[-1] < losses[0], "Trainer: the loss on the repeated batch did not fall")
 
-        step_dir = trainer.ckpt_dir / f"step_{trainer.state.step}"
-        meta = json.loads((step_dir / "meta.json").read_text())
-        keys = {"epoch", "step", "best_val_loss", "config", "tokenizer_config", "metrics", "scheduler",
-                "early_stopping"}
-        check(keys <= set(meta), f"checkpoint meta.json keys {sorted(meta)}")
-        loaded = Predictor.from_checkpoint(str(step_dir), batch_size=TRAIN_BATCH)  # on the card
-        sd, sd_ref = loaded.model.state_dict(), trainer.model.state_dict()
-        check(all(torch.equal(sd[k], sd_ref[k]) for k in sd_ref), "checkpoint weights differ from the trainer's")
-        in_memory = Predictor(tcfg, trainer.model, tokenizer, batch_size=TRAIN_BATCH)
-        ids_ck = loaded.decode_canvases(batch["images"])
-        ids_mem = in_memory.decode_canvases(batch["images"])
-        log(f"Predictor.from_checkpoint({step_dir.name}): greedy ids equal to the trained model's in memory: "
-            f"{bool(np.array_equal(ids_ck, ids_mem))} ({ids_ck.shape}, {len(np.unique(ids_ck))} distinct tokens)")
-        check(np.array_equal(ids_ck, ids_mem), "ids from the checkpoint differ from the trained model's")
+    step_dir = trainer.ckpt_dir / f"step_{trainer.state.step}"
+    meta = json.loads((step_dir / "meta.json").read_text())
+    keys = {"epoch", "step", "best_val_loss", "config", "tokenizer_config", "metrics", "scheduler",
+            "early_stopping"}
+    check(keys <= set(meta), f"checkpoint meta.json keys {sorted(meta)}")
+    loaded = Predictor.from_checkpoint(str(step_dir), batch_size=TRAIN_BATCH)  # on the card
+    sd, sd_ref = loaded.model.state_dict(), trainer.model.state_dict()
+    check(all(torch.equal(sd[k], sd_ref[k]) for k in sd_ref), "checkpoint weights differ from the trainer's")
+    in_memory = Predictor(tcfg, trainer.model, tokenizer, batch_size=TRAIN_BATCH)
+    ids_ck = loaded.decode_canvases(batch["images"])
+    ids_mem = in_memory.decode_canvases(batch["images"])
+    log(f"Predictor.from_checkpoint({step_dir.name}): greedy ids equal to the trained model's in memory: "
+        f"{bool(np.array_equal(ids_ck, ids_mem))} ({ids_ck.shape}, {len(np.unique(ids_ck))} distinct tokens)")
+    check(np.array_equal(ids_ck, ids_mem), "ids from the checkpoint differ from the trained model's")
+    return step_dir, batch
 
 
 def phase_grid_train_step(dev, card: str, gcfg) -> None:
@@ -1886,6 +1898,422 @@ def phase_grid_train_step(dev, card: str, gcfg) -> None:
     ms = time_ms(lambda: step(state, batch), iters=3, warmup=1)
     log(f"grid train step ({gcfg.hardware.compute_dtype}, B={TRAIN_BATCH}): {ms:.2f} ms a step = {TRAIN_BATCH * 1e3 / ms:.1f} images/s "
         f"(the teacher-forced grid pass is a plain loop of cell steps) [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# The channel-first encoder chain (hardware.pallas_chain): the conv-pool
+# kernel alone in both layouts, conv1_pool's NHWC output, the chain end to end
+# for both memory kinds, and training through it.
+# ---------------------------------------------------------------------------
+# Blocks 1 and 2 at the main path's shapes: (Cin, Cout, H, W) of their inputs.
+CHAIN_BLOCKS = ((FILTERS[0], FILTERS[1], IMG_H // 2, IMG_W // 2), (FILTERS[1], FILTERS[2], IMG_H // 4, IMG_W // 4))
+# (B, Cin, Cout, H, W): odd channel counts, a Cout below one 64-channel tile,
+# H and W that are not multiples of the 4 x 16 pooled tile.
+CHAIN_ODD = ((5, 3, 12, 8, 12), (5, 33, 12, 8, 12), (5, 1, 12, 8, 12))
+# The conv-pool kernel against its plain version on the same inputs: float32
+# sums of 9 Cin products in another order, within CHAIN_F32_RTOL of the
+# largest value; bf16 within one rounding step of |ref| (BF16_ULP, plus
+# CONV_F32_ATOL) on every element and equal on CHAIN_BF16_EQUAL of them.
+CHAIN_F32_RTOL = 1e-5
+CHAIN_BF16_EQUAL = 0.99
+# The chain end to end against the plain path, bf16: the feature map after the
+# chain within CHAIN_FEAT_RTOL of its largest value (block 2's one-step
+# differences carried through block 3), the memory within CONV_BF16_RTOL and
+# the tokens under compare_tokens.  A convblock_cf with its bias dropped or
+# its taps shifted by one column must fail that rule.
+CHAIN_FEAT_RTOL = 2.0**-6
+
+
+def _conv_errors(got, ref):
+    """(max abs err, max abs err beyond one bf16 step of |ref|, share equal)."""
+    d = (got.float() - ref.float()).abs()
+    over = (d - BF16_ULP * ref.float().abs()).max().item()
+    return d.max().item(), over, (d == 0).float().mean().item()
+
+
+def _check_conv(what: str, got, ref, dtype: str) -> float:
+    err, over, equal = _conv_errors(got, ref)
+    scale = max(ref.float().abs().max().item(), 1.0)
+    if dtype == "float32":
+        ok = err <= CHAIN_F32_RTOL * scale
+        log(f"{what} float32: max abs err {err:.3g} (tol {CHAIN_F32_RTOL} x {scale:.3g})")
+    else:
+        ok = over <= CONV_F32_ATOL and equal >= CHAIN_BF16_EQUAL
+        log(f"{what} bf16: max abs err {err:.3g}, beyond one bf16 step {over:.3g} (tol {CONV_F32_ATOL}), "
+            f"equal {equal:.4f} (floor {CHAIN_BF16_EQUAL})")
+    check(ok, f"{what} {dtype} disagrees with its plain version")
+    check(bool(got.float().isfinite().all().item()), f"{what} {dtype}: non-finite output")
+    return err
+
+
+def phase_chain_kernels(dev, rng, card: str, kernels: dict) -> None:
+    """convblock_cf (NCHW, bias) and fused_conv_relu_pool (NHWC, no bias),
+    the conv-pool kernel, against their plain versions at the chain's two
+    block shapes at B = BATCH and at odd shapes, float32 and bf16, then
+    their times beside the bound and cuDNN's conv2d+relu+max_pool2d; and
+    conv1_pool's NHWC output and conv1_lane_relu_pool."""
+    import torch
+    import torch.nn.functional as F
+
+    from img2latex_tpu_torch.ops.conv1_lane import conv1_lane_relu_pool, conv1_lane_relu_pool_plain
+    from img2latex_tpu_torch.ops.conv1_phase import conv1_pool, conv1_pool_plain
+    from img2latex_tpu_torch.ops.conv_cf import convblock_cf_plain, fused_convblock_cf
+    from img2latex_tpu_torch.ops.conv_pool import fused_conv_relu_pool, fused_conv_relu_pool_plain
+    from img2latex_tpu_torch.ops.preprocess import normalize_images
+
+    def operands(B, Cin, Cout, H, W):
+        x = torch.from_numpy(np.maximum(rng.standard_normal((B, Cin, H, W), dtype=np.float32), 0)).to(dev)
+        w = torch.from_numpy(rng.standard_normal((Cout, Cin, 3, 3), dtype=np.float32) / np.sqrt(9 * Cin)).to(dev)
+        b = torch.from_numpy(rng.standard_normal(Cout, dtype=np.float32) * 0.1).to(dev)
+        return x, w, b
+
+    err = {"cf": 0.0, "nhwc": 0.0}
+    shapes = [(BATCH,) + blk for blk in CHAIN_BLOCKS] + list(CHAIN_ODD)
+    with torch.no_grad():
+        for shape in shapes:
+            x32, w, b = operands(*shape)
+            for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                x = x32.to(dtype)
+                e = _check_conv(f"convblock_cf {shape}", fused_convblock_cf(x, w, b), convblock_cf_plain(x, w, b), name)
+                xh = x.permute(0, 2, 3, 1).contiguous()
+                e2 = _check_conv(f"fused_conv_relu_pool {shape}", fused_conv_relu_pool(xh, w),
+                                 fused_conv_relu_pool_plain(xh, w), name)
+                if name == "float32" and shape[0] == BATCH:
+                    err["cf"], err["nhwc"] = max(err["cf"], e), max(err["nhwc"], e2)
+                del x, xh
+            del x32
+        torch.cuda.empty_cache()
+
+        # times at the main path's two block shapes, bf16, B = BATCH
+        t = {k: 0.0 for k in ("cf", "cf_p", "cf_l", "nhwc", "nhwc_p", "nhwc_l", "bound_cf", "bound_nhwc")}
+        for blk in CHAIN_BLOCKS:
+            Cin, Cout, H, W = blk
+            x32, w, b = operands(BATCH, *blk)
+            x = x32.to(torch.bfloat16)
+            del x32
+            xh = x.permute(0, 2, 3, 1).contiguous()
+            wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+            xcl = xh.permute(0, 3, 1, 2)  # the NHWC tensor as a channels-last NCHW view, as cuDNN takes it
+            t["cf"] += time_ms(lambda: fused_convblock_cf(x, w, b), iters=5, warmup=1)
+            t["cf_p"] += time_ms(lambda: convblock_cf_plain(x, w, b), iters=3, warmup=1)
+            t["cf_l"] += time_ms(lambda: F.max_pool2d(F.relu(F.conv2d(x, wb, bb, padding=1)), 2), iters=5, warmup=1)
+            t["nhwc"] += time_ms(lambda: fused_conv_relu_pool(xh, w), iters=5, warmup=1)
+            t["nhwc_p"] += time_ms(lambda: fused_conv_relu_pool_plain(xh, w), iters=3, warmup=1)
+            t["nhwc_l"] += time_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xcl, wb, None, padding=1)), 2), iters=5, warmup=1)
+            out_bytes = 2 * BATCH * Cout * (H // 2) * (W // 2)
+            flops = 2 * 9 * Cin * Cout * H * W * BATCH
+            bnd_cf, by = bound_ms(x.numel() * 2 + out_bytes + 4 * w.numel() + 4 * Cout, flops, "bfloat16")
+            bnd_nh, _ = bound_ms(x.numel() * 2 + out_bytes + 4 * w.numel(), flops, "bfloat16")
+            t["bound_cf"] += bnd_cf
+            t["bound_nhwc"] += bnd_nh
+            log(f"conv-pool kernel, block {Cin}->{Cout} at ({BATCH},{Cin},{H},{W}) bf16: bound {bnd_cf:.4f} ms ({by}, "
+                f"{flops:.3g} FLOP) [{card}]")
+            del x, xh, xcl
+            torch.cuda.empty_cache()
+        log(f"convblock_cf, the chain's two blocks at B={BATCH}, bf16: kernel {t['cf']:.3f} ms, plain {t['cf_p']:.3f} ms, "
+            f"conv2d+relu+max_pool2d (cuDNN) {t['cf_l']:.3f} ms, bound {t['bound_cf']:.4f} ms ({by}); "
+            f"fused_conv_relu_pool (NHWC, no bias) kernel {t['nhwc']:.3f} ms, plain {t['nhwc_p']:.3f} ms, "
+            f"cuDNN channels-last {t['nhwc_l']:.3f} ms, bound {t['bound_nhwc']:.4f} ms [{card}]")
+        src = "img2latex_tpu_torch/csrc/conv_pool.cu"
+        kernels["convblock_cf"] = dict(
+            name="convblock_cf", route="cuda", source=src, replaces="img2latex_tpu/ops/pallas/conv_cf.py:170",
+            max_abs_err=err["cf"], ms=t["cf"], plain_ms=t["cf_p"], bound_ms=t["bound_cf"], bound_by=by,
+            library_ms=t["cf_l"])
+        kernels["fused_conv_relu_pool"] = dict(
+            name="fused_conv_relu_pool", route="cuda", source=src, replaces="img2latex_tpu/ops/pallas/conv_pool.py:101",
+            max_abs_err=err["nhwc"], ms=t["nhwc"], plain_ms=t["nhwc_p"], bound_ms=t["bound_nhwc"], bound_by=by,
+            library_ms=t["nhwc_l"])
+
+        # conv1_pool's NHWC output (conv1_lane_relu_pool with a zero bias)
+        u8 = torch.from_numpy(rng.integers(0, 256, size=(BATCH, IMG_H, IMG_W, 1), dtype=np.uint8)).to(dev)
+        w1 = torch.from_numpy(rng.standard_normal((FILTERS[0], 1, 3, 3), dtype=np.float32) / 3.0).to(dev)
+        b1 = torch.from_numpy(rng.standard_normal(FILTERS[0], dtype=np.float32) * 0.1).to(dev)
+        err1 = 0.0
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            x = normalize_images(u8[:64], dtype=dtype)
+            got = conv1_pool(x, w1, b1, layout="nhwc")
+            check(tuple(got.shape) == (x.shape[0], IMG_H // 2, IMG_W // 2, FILTERS[0]),
+                  f"conv1_pool nhwc {tuple(got.shape)}")
+            e = _check_conv("conv1_pool[nhwc] (64,64,800,1)", got, conv1_pool_plain(x, w1, b1, layout="nhwc"), name)
+            _check_conv("conv1_lane_relu_pool (64,64,800,1)", conv1_lane_relu_pool(x, w1),
+                        conv1_lane_relu_pool_plain(x, w1), name)
+            check(torch.equal(got, conv1_pool(x, w1, b1, layout="nchw").permute(0, 2, 3, 1)),
+                  f"conv1_pool {name}: the NHWC output is not the NCHW one transposed")
+            err1 = e if name == "float32" else err1
+        xb = normalize_images(u8, dtype=torch.bfloat16)
+        xcl = xb.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        ms_k = time_ms(lambda: conv1_pool(xb, w1, b1, layout="nhwc"))
+        ms_p = time_ms(lambda: conv1_pool_plain(xb, w1, b1, layout="nhwc"))
+        ms_l = time_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xcl, w1.to(torch.bfloat16), b1.to(torch.bfloat16),
+                                                              padding=1)), 2))
+        nbytes = xb.numel() * 2 + BATCH * FILTERS[0] * (IMG_H // 2) * (IMG_W // 2) * 2 + w1.numel() * 4 + b1.numel() * 4
+        bnd, by1 = bound_ms(nbytes, 2 * 9 * FILTERS[0] * BATCH * IMG_H * IMG_W, "bfloat16")
+    log(f"conv1_pool[nhwc] ({BATCH},{IMG_H},{IMG_W},1) bf16: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+        f"conv2d+relu+max_pool2d channels-last {ms_l:.4f} ms, bound {bnd:.4f} ms ({by1}) [{card}]")
+    kernels["conv1_pool[nhwc]"] = dict(
+        name="conv1_pool[nhwc]", route="cuda", source="img2latex_tpu_torch/csrc/conv1_pool.cu",
+        replaces="img2latex_tpu/ops/pallas/conv1_lane.py:96", max_abs_err=err1,
+        ms=ms_k, plain_ms=ms_p, bound_ms=bnd, bound_by=by1, library_ms=ms_l)
+
+
+def chain_copy(cfg, model):
+    """cfg with hardware.pallas_chain on, and its model from build_model
+    (on the card) holding ``model``'s weights."""
+    from img2latex_tpu_torch.models.seq2seq import build_model
+
+    ccfg = copy.deepcopy(cfg)
+    ccfg.hardware.pallas_chain = True
+    cmodel = build_model(ccfg, VOCAB)  # on the card: no device named
+    cmodel.load_state_dict(model.state_dict())
+    return ccfg, cmodel
+
+
+def plain_reference(pred, canv):
+    """The plain path's greedy tokens and top-2 margins (host arrays), memory
+    and feature map for pred's model on the uint8 canvases ``canv``."""
+    import torch
+
+    from img2latex_tpu_torch.ops.decode_step import greedy_decode_plain
+    from img2latex_tpu_torch.ops.grid_decode import grid_greedy_decode_plain, grid_memory_proj
+    from img2latex_tpu_torch.ops.preprocess import normalize_images
+
+    pre = pred.cfg.preprocessing
+    with torch.no_grad(), plain_path():
+        x = normalize_images(torch.from_numpy(canv).to(pred.device), pre.normalization_mean,
+                             pre.normalization_std, pred.dtype)
+        feat = pred.model.encoder.features(x)
+        mem = pred.model.encode(x)
+        if pred.model.decoder.cell.attends(mem):
+            att = pred.packed_attention()
+            ref, margins = grid_greedy_decode_plain(pred.packed_decoder(), att, mem, grid_memory_proj(att, mem),
+                                                    MAX_LEN, 1, END_ID, 0, return_margins=True)
+        else:
+            ref, margins = greedy_decode_plain(pred.packed_decoder(), mem[:, 0, :], MAX_LEN, 1, END_ID, 0,
+                                               return_margins=True)
+    return ref.cpu().numpy(), margins.cpu().numpy(), mem, feat, x
+
+
+def _chain_verdict(pred, canv, ref, dtype: str = "bfloat16"):
+    """(ok, stats) of the chain path's feature map, memory and tokens on canv
+    against the plain path's ``ref`` (plain_reference's output)."""
+    import torch
+
+    ref_tok, margins, mem_ref, feat_ref, x = ref
+    toks = pred.decode_canvases(canv)
+    with torch.no_grad():
+        feat = pred.model.encoder.features(x)
+        mem = pred.model.encode(x)
+    feat_err = rel_err(feat, feat_ref)
+    mem_err = ((mem.float() - mem_ref.float()).abs() / mem_ref.float().abs().clamp_min(1.0)).max().item()
+    grid = mem.shape[1] > 1
+    ok, stats = compare_tokens(toks, ref_tok, margins, dtype, grid=grid)
+    stats = dict(feature_rel_err=feat_err, memory_rel_err=mem_err, **stats)
+    ok = ok and feat_err <= CHAIN_FEAT_RTOL and mem_err <= CONV_BF16_RTOL and bool(mem.float().isfinite().all())
+    return ok, stats
+
+
+def _broken_convblock_cf(mode: str):
+    """A convblock_cf through the kernel with its bias dropped, or its taps
+    shifted by one column: each must fail the chain's rule."""
+    from img2latex_tpu_torch.ops.conv_cf import conv_pool_launch
+
+    def broken(x, weight, bias):
+        if mode == "bias dropped":
+            return conv_pool_launch(x, weight, None, "nchw", "broken")
+        return conv_pool_launch(x, weight.roll(1, dims=3), bias, "nchw", "broken")
+
+    return broken
+
+
+def phase_chain_end_to_end(dev, card: str, kind: str, cfg, model, tokenizer, images, kernels: dict) -> None:
+    """Predictor.predict_batch on the chain (hardware.pallas_chain) at full
+    width, bf16, greedy: images/s and encoder ms with the chain on and off in
+    this run, the launches, the output against the plain path, and two
+    broken convblock_cf that must fail; for grid also beam-5 and sampling
+    through the chain (only the encoder differs from phases 9 and 12)."""
+    import torch
+
+    from img2latex_tpu_torch.models import encoder as enc_mod
+    from img2latex_tpu_torch.ops.beam_decode import beam_step
+    from img2latex_tpu_torch.ops.conv1_phase import conv1_pool
+    from img2latex_tpu_torch.ops.conv_cf import convblock_cf
+    from img2latex_tpu_torch.ops.conv_pool import fused_conv_relu_pool
+    from img2latex_tpu_torch.ops.decode_step import lstm_layer_step, vocab_argmax_step, vocab_sample_step
+    from img2latex_tpu_torch.training.predictor import Predictor
+
+    ccfg, cmodel = chain_copy(cfg, model)
+    pred = Predictor(ccfg, cmodel, tokenizer, batch_size=BATCH)
+    off = Predictor(cfg, model, tokenizer, batch_size=BATCH)
+    counted = (conv1_pool, convblock_cf, lstm_layer_step, vocab_argmax_step)
+    speed, on_launches = {}, {}
+    for label, p in (("chain off", off), ("chain on", pred), ("chain on ", pred), ("chain off ", off)):
+        p.predict_batch(images[:BATCH], return_ids=True)  # warm-up
+        torch.cuda.synchronize()
+        for k in counted + (fused_conv_relu_pool,):
+            k.launches = 0
+        conv1_pool.nhwc_launches = 0
+        t0 = time.perf_counter()
+        ids = p.predict_batch(images, return_ids=True)
+        torch.cuda.synchronize()
+        speed.setdefault(label.strip(), []).append(N_IMAGES / (time.perf_counter() - t0))
+        launches = {k.__name__: k.launches for k in counted}
+        if label.strip() == "chain on":
+            on_launches = launches
+            check(len(ids) == N_IMAGES and all(tokenizer.end_token_id not in r and all(0 <= t < VOCAB for t in r)
+                                               for r in ids), f"{kind} chain predict_batch output")
+            for name in ("conv1_pool", "convblock_cf", "lstm_layer_step", "vocab_argmax_step"):
+                check(launches[name] > 0, f"{name} was not launched on the {kind} chain path")
+            if kind == "vector":
+                # the chain runs both kernels channel-first: their NHWC layouts are not on the path
+                kernels["convblock_cf"]["launches"] = launches["convblock_cf"]
+                kernels["fused_conv_relu_pool"]["launches"] = fused_conv_relu_pool.launches
+                kernels["conv1_pool[nhwc]"]["launches"] = conv1_pool.nhwc_launches
+        else:
+            check(launches["convblock_cf"] == 0, f"{kind}: convblock_cf launched with the chain off")
+    canv = np.stack(images[:BATCH])
+    ref = plain_reference(pred, canv)
+    x = ref[4]
+    with torch.no_grad():
+        ms_on = time_ms(lambda: cmodel.encode(x), iters=5)
+        ms_off = time_ms(lambda: model.encode(x), iters=5)
+        ms_feat_on = time_ms(lambda: cmodel.encoder.features(x), iters=5)
+        ms_feat_off = time_ms(lambda: model.encoder.features(x), iters=5)
+    log(f"{kind} predict_batch on the chain: {N_IMAGES} images at batch {BATCH}, bf16: images/s chain on "
+        f"{[round(v, 1) for v in speed['chain on']]}, chain off {[round(v, 1) for v in speed['chain off']]} "
+        f"(off, on, on, off); encoder a batch: chain on {ms_on:.3f} ms (conv stack {ms_feat_on:.3f}), chain off "
+        f"{ms_off:.3f} ms (conv stack {ms_feat_off:.3f}); launches with the chain on {json.dumps(on_launches)} [{card}]")
+    ok, stats = _chain_verdict(pred, canv, ref)
+    log(f"{kind} chain end to end vs plain path ({BATCH} images): {json.dumps(stats)} (tols: feature map "
+        f"{CHAIN_FEAT_RTOL:.4g}, memory {CONV_BF16_RTOL})")
+    check(ok, f"{kind} chain end-to-end output disagrees with the plain path")
+    saved = enc_mod.convblock_cf
+    for mode in ("bias dropped", "taps shifted"):
+        enc_mod.convblock_cf = _broken_convblock_cf(mode)
+        try:
+            bad_ok, bad = _chain_verdict(pred, canv, ref)
+        finally:
+            enc_mod.convblock_cf = saved
+        log(f"{kind} chain with a broken convblock_cf ({mode}): fails the rule: {not bad_ok}; "
+            f"feature rel err {bad['feature_rel_err']:.3g}, memory rel err {bad['memory_rel_err']:.3g}, "
+            f"rows differ {bad['rows_differ']}")
+        check(not bad_ok, f"{kind}: a convblock_cf with its {mode} passed the chain's rule")
+    if kind != "grid":
+        return
+    for label, kw, step in (("beam-5", dict(beam_size=BEAM, length_penalty=LENGTH_PENALTY), beam_step),
+                            ("sampling", dict(seed=SAMPLE_SEED, **SAMPLE), vocab_sample_step)):
+        pred.predict_batch(images[:BATCH], return_ids=True, **kw)  # warm-up
+        torch.cuda.synchronize()
+        convblock_cf.launches = step.launches = 0
+        t0 = time.perf_counter()
+        ids = pred.predict_batch(images, return_ids=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"grid {label} predict_batch on the chain: {N_IMAGES / wall:.1f} images/s; launches convblock_cf "
+            f"{convblock_cf.launches}, {step.__name__} {step.launches} [{card}]")
+        check(convblock_cf.launches > 0 and step.launches > 0, f"grid {label} on the chain: kernels not launched")
+        check(len(ids) == N_IMAGES and all(tokenizer.end_token_id not in r and all(0 <= t < VOCAB for t in r)
+                                           for r in ids), f"grid {label} chain predict_batch output")
+
+
+def phase_chain_training(dev, rng, card: str, kernels: dict, tcfg, step_dir, batch) -> None:
+    """convblock_cf's backward against autograd of convblock_cf_plain at
+    B = TRAIN_BATCH; one vector train step at bench_train.py's shapes on the
+    chain against the plain path, and its time beside the step off the chain;
+    Predictor.from_checkpoint(..., use_pallas_chain=True) on phase 16's
+    checkpoint."""
+    import torch
+    import torch.nn.functional as F
+
+    from img2latex_tpu_torch.models.seq2seq import build_model
+    from img2latex_tpu_torch.ops.conv_cf import convblock_cf, convblock_cf_plain
+    from img2latex_tpu_torch.training.optim import build_optimizer
+    from img2latex_tpu_torch.training.predictor import Predictor
+    from img2latex_tpu_torch.training.steps import create_train_state, make_train_step
+
+    B = TRAIN_BATCH
+    err32, t = 0.0, {"k": 0.0, "p": 0.0, "l": 0.0, "bound": 0.0}
+    for Cin, Cout, H, W in CHAIN_BLOCKS:
+        x32 = torch.from_numpy(np.maximum(rng.standard_normal((B, Cin, H, W), dtype=np.float32), 0)).to(dev)
+        w = torch.from_numpy(rng.standard_normal((Cout, Cin, 3, 3), dtype=np.float32) / np.sqrt(9 * Cin)).to(dev)
+        b = torch.from_numpy(rng.standard_normal(Cout, dtype=np.float32) * 0.1).to(dev)
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            x = x32.to(dtype)
+            g = torch.from_numpy(rng.standard_normal((B, Cout, H // 2, W // 2), dtype=np.float32)).to(dev, dtype)
+
+            def grads(fn):
+                leaves = [x.clone().requires_grad_(), w.clone().requires_grad_(), b.clone().requires_grad_()]
+                return torch.autograd.grad(fn(*leaves), leaves, g)
+
+            got, ref = grads(convblock_cf), grads(convblock_cf_plain)
+            errs = {n: rel_err(a, r) for n, a, r in zip(("dx", "dweight", "dbias"), got, ref)}
+            log(f"convblock_cf backward {name} ({B},{Cin},{H},{W}): rel err vs autograd of convblock_cf_plain "
+                f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})} (tol {CONV_BWD_TOL[name]})")
+            check(max(errs.values()) <= CONV_BWD_TOL[name], f"convblock_cf backward {name}: {errs}")
+            check(got[1].abs().max().item() > 0, f"convblock_cf backward {name}: zero weight gradient")
+            if name == "float32":
+                err32 = max(err32, max((a - r).abs().max().item() for a, r in zip(got, ref)))
+        # times of the backward alone, bf16 (the kernel path recomputes the forward)
+        leaves = [x.clone().requires_grad_(), w.clone().requires_grad_(), b.clone().requires_grad_()]
+        out_k, out_p = convblock_cf(*leaves), convblock_cf_plain(*leaves)
+        xl = x.clone().requires_grad_()
+        wl, bl = w.to(torch.bfloat16).requires_grad_(), b.to(torch.bfloat16).requires_grad_()
+        out_l = F.max_pool2d(F.relu(F.conv2d(xl, wl, bl, padding=1)), 2)
+        t["k"] += time_ms(lambda: torch.autograd.grad(out_k, leaves, g, retain_graph=True), iters=5, warmup=1)
+        t["p"] += time_ms(lambda: torch.autograd.grad(out_p, leaves, g, retain_graph=True), iters=5, warmup=1)
+        t["l"] += time_ms(lambda: torch.autograd.grad(out_l, [xl, wl, bl], g, retain_graph=True), iters=5, warmup=1)
+        # reads x, w and the pooled cotangent, writes dx, dw, db; dx and dw products: 2 x the forward's FLOP
+        nbytes = 2 * (2 * x.numel() + g.numel()) + 4 * 2 * (w.numel() + Cout)
+        bnd, by = bound_ms(nbytes, 2 * 2 * 9 * Cin * Cout * H * W * B, "bfloat16")
+        t["bound"] += bnd
+        del x32, x, xl, out_k, out_p, out_l, leaves
+        torch.cuda.empty_cache()
+    log(f"convblock_cf backward, the chain's two blocks at B={B}, bf16: eager (recomputes the float32 forward) "
+        f"{t['k']:.3f} ms, plain autograd {t['p']:.3f} ms, conv2d+relu+max_pool2d bf16 backward {t['l']:.3f} ms, "
+        f"bound {t['bound']:.4f} ms ({by}) [{card}]")
+    kernels["convblock_cf_bwd"] = dict(
+        name="convblock_cf_bwd", route="eager", source="img2latex_tpu_torch/ops/conv_cf.py",
+        replaces="img2latex_tpu/ops/pallas/conv_cf.py:221", max_abs_err=err32,
+        ms=t["k"], plain_ms=t["p"], bound_ms=t["bound"], bound_by=by, library_ms=t["l"])
+
+    # one train step on the chain against the plain path, then the chain's steps timed and counted
+    ccfg = copy.deepcopy(tcfg)
+    ccfg.hardware.pallas_chain = True
+    tbatch = _train_batch(ccfg, seed=SEED + 3)
+    _compare_steps(f"chain train step (vector, bf16, B={B}, dropout {TRAIN_DROPOUT})", _step_pair(ccfg, tbatch))
+    dbatch = {k: torch.as_tensor(v).to(dev) for k, v in tbatch.items()}
+    ms = {}
+    for label, c in (("off", tcfg), ("on", ccfg)):
+        model = build_model(c, VOCAB, seed=SEED)
+        state = create_train_state(model, build_optimizer(c, model), c)
+        step = make_train_step(c, 0)
+        for _ in range(2):
+            step(state, dbatch)
+        torch.cuda.synchronize()
+        convblock_cf.launches = convblock_cf.backward_calls = 0
+        t0 = time.perf_counter()
+        for _ in range(5):
+            m = step(state, dbatch)
+        check(np.isfinite(m["loss"].item()), f"train step, chain {label}: non-finite loss")
+        ms[label] = (time.perf_counter() - t0) * 1e3 / 5
+        if label == "on":
+            check(convblock_cf.launches > 0 and convblock_cf.backward_calls > 0,
+                  "convblock_cf was not run on the chain's training path")
+            kernels["convblock_cf_bwd"]["launches"] = convblock_cf.backward_calls
+            per_step = (convblock_cf.launches / 5, convblock_cf.backward_calls / 5)
+        del model, state
+    log(f"train step (vector, bf16, B={B}): chain on {ms['on']:.2f} ms = {B * 1e3 / ms['on']:.1f} images/s, chain off "
+        f"{ms['off']:.2f} ms = {B * 1e3 / ms['off']:.1f} images/s; convblock_cf launches a step {per_step[0]:.0f}, "
+        f"backward passes {per_step[1]:.0f} [{card}]")
+
+    # phase 16's checkpoint decoded on the chain
+    pred = Predictor.from_checkpoint(str(step_dir), batch_size=TRAIN_BATCH, use_pallas_chain=True)  # on the card
+    check(pred.model.encoder.pallas_chain, "from_checkpoint(use_pallas_chain=True) left the chain off")
+    convblock_cf.launches = 0
+    ok, stats = _chain_verdict(pred, batch["images"], plain_reference(pred, batch["images"]))
+    log(f"Predictor.from_checkpoint({step_dir.name}, use_pallas_chain=True): convblock_cf launches "
+        f"{convblock_cf.launches}; vs the plain path {json.dumps(stats)}")
+    check(convblock_cf.launches > 0, "the checkpoint's predictor did not run the chain")
+    check(ok, "the checkpoint's chain predictor disagrees with the plain path")
 
 
 def _build_dir():
@@ -2181,17 +2609,29 @@ def main() -> int:
     # ---- phase 15: the whole train step against the plain path, timed ----------
     phase_train_step(dev, card, tcfg)
 
-    # ---- phase 16: Trainer.train(), a checkpoint, Predictor.from_checkpoint ---
-    phase_trainer(dev, card, tcfg, tokenizer, kernels)
+    with tempfile.TemporaryDirectory(dir=str(_build_dir())) as ckpt_tmp:
+        # ---- phase 16: Trainer.train(), a checkpoint, Predictor.from_checkpoint ---
+        step_dir, tbatch = phase_trainer(dev, card, tcfg, tokenizer, kernels, ckpt_tmp)
 
-    # ---- phase 17: one grid-memory train step -----------------------------------
-    phase_grid_train_step(dev, card, train_config("grid"))
+        # ---- phase 17: one grid-memory train step -----------------------------------
+        phase_grid_train_step(dev, card, train_config("grid"))
+
+        # ---- phase 18: the channel-first chain's kernels alone ------------------------
+        phase_chain_kernels(dev, rng, card, kernels)
+
+        # ---- phase 19: the chain end to end: vector greedy, grid greedy, beam, sampling
+        phase_chain_end_to_end(dev, card, "vector", cfg, model, tokenizer, images, kernels)
+        phase_chain_end_to_end(dev, card, "grid", gcfg, gmodel, tokenizer, gimages, kernels)
+
+        # ---- phase 20: training on the chain, phase 16's checkpoint on the chain ------
+        phase_chain_training(dev, rng, card, kernels, tcfg, step_dir, tbatch)
 
     # ---- report --------------------------------------------------------------
     log(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s (build included)")
     order = ("conv1_pool", "conv1_pool[bias=0]", "lstm_layer_step", "vocab_argmax_step", "attend_step",
              "beam_step", f"attend_step[rows_per_mem={BEAM}]", "vocab_sample_step", "lstm_seq_fwd",
-             "lstm_seq_bwd", "conv1_pool_bwd")
+             "lstm_seq_bwd", "conv1_pool_bwd", "convblock_cf", "convblock_cf_bwd", "fused_conv_relu_pool",
+             "conv1_pool[nhwc]")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kernels[n][k] for k in keys} for n in order]}))

@@ -2,9 +2,10 @@
 
 A copy of the schema of ``img2latex_tpu/config.py`` cut to the sections the
 port reads: data, model (encoder, decoder), training, evaluation, inference,
-preprocessing and the compute-type settings of ``hardware``.  Keys this schema does not know are
-ignored by :func:`config_from_dict` (``strict=False``), so a config dict
-written by the JAX package loads unchanged.
+preprocessing and the compute-type and encoder-chain settings of
+``hardware``.  Keys this schema does not know are ignored by
+:func:`config_from_dict` (``strict=False``), so a config dict written by the
+JAX package loads unchanged.
 
 YAML is read only by :func:`load_config`, which imports ``yaml`` inside the
 function: nothing on the inference or training path needs it.
@@ -120,6 +121,10 @@ class HardwareConfig:
     parameters stay float32 and are cast at use, as the JAX package does."""
 
     compute_dtype: str = "bfloat16"
+    # The channel-first encoder chain: blocks 2..n through the conv_cf
+    # kernel (bias in float32, one rounding), as the JAX package's
+    # hardware.pallas_chain; off by default there and here.
+    pallas_chain: bool = False
 
 
 @dataclass

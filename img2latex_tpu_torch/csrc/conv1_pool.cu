@@ -1,12 +1,14 @@
 // conv3x3 (Cin = 1, SAME, zero padding) + bias + ReLU + maxpool 2x2, fused.
 //
-// Replaces the TPU kernel img2latex_tpu/ops/pallas/conv1_phase.py::fused_conv1_pool
-// (pl.pallas_call at line 208) and covers conv1_lane.py::conv1_lane_relu_pool
-// (the same op without the bias).  As there, only the pooled map is written:
-// the full-resolution conv output never reaches device memory.
+// Replaces the TPU kernels img2latex_tpu/ops/pallas/conv1_phase.py::fused_conv1_pool
+// (pl.pallas_call at line 208) and conv1_lane.py::conv1_lane_relu_pool (pl.pallas_call
+// at line 96: the same op without the bias, written channels-last).  As there, only
+// the pooled map is written: the full-resolution conv output never reaches device
+// memory.
 //
-// Layout: x (B, H, W) -- the NHWC input with its single channel -- in, and
-// out (B, Cout, H/2, W/2) NCHW, the layout of the next block's conv2d.
+// Layout: x (B, H, W) -- the NHWC input with its single channel -- in; out
+// (B, Cout, H/2, W/2) NCHW, the layout of the next block's conv2d and of the
+// channel-first chain, or (B, H/2, W/2, Cout) NHWC (a template parameter).
 //
 // Bound: per 64x800 image in bf16 the kernel reads 102 KB and writes
 // 32 x 32 x 400 x 2 B = 819 KB, against 2 x 9 x 32 x 64 x 800 = 29.5 MFLOP:
@@ -18,7 +20,8 @@
 // four conv outputs of the 2x2 pool window in float32, takes their max, adds
 // the bias (max and a constant add commute), applies ReLU and stores.  The
 // taps and biases sit in shared memory, read as broadcasts.  Neighbouring
-// threads take neighbouring pw, so each channel's store is coalesced.
+// threads take neighbouring pw, so each channel's NCHW store is coalesced; an
+// NHWC store writes a thread's Cout channels to consecutive addresses.
 #include "common.cuh"
 
 namespace {
@@ -26,7 +29,7 @@ namespace {
 constexpr int kMaxCout = 128;
 constexpr int kThreads = 128;
 
-template <typename T>
+template <typename T, bool kNHWC>
 __global__ void __launch_bounds__(kThreads) conv1_pool_kernel(
     const T* __restrict__ x, const float* __restrict__ taps, const float* __restrict__ bias,
     T* __restrict__ out, int H, int W, int Cout) {
@@ -55,7 +58,10 @@ __global__ void __launch_bounds__(kThreads) conv1_pool_kernel(
   }
 
   const size_t plane = (size_t)H2 * W2;
-  T* ob = out + (size_t)b * Cout * plane + (size_t)ph * W2 + pw;
+  // channel c of this pixel lies at ob[c * stride]
+  const size_t stride = kNHWC ? 1 : plane;
+  T* ob = kNHWC ? out + (((size_t)b * H2 + ph) * W2 + pw) * Cout
+                : out + (size_t)b * Cout * plane + (size_t)ph * W2 + pw;
   for (int c = 0; c < Cout; ++c) {
     const float* k = s_taps + c * 9;
     float best = -3.402823466e+38f;  // -FLT_MAX; the sums are finite
@@ -72,16 +78,16 @@ __global__ void __launch_bounds__(kThreads) conv1_pool_kernel(
         best = fmaxf(best, acc);
       }
     }
-    ob[(size_t)c * plane] = i2l::from_f<T>(fmaxf(best + s_bias[c], 0.f));
+    ob[(size_t)c * stride] = i2l::from_f<T>(fmaxf(best + s_bias[c], 0.f));
   }
 }
 
-template <typename T>
+template <typename T, bool kNHWC>
 cudaError_t launch(const void* x, const void* taps, const void* bias, void* out, int B, int H,
                    int W, int Cout, cudaStream_t stream) {
   const int W2 = W / 2;
   dim3 grid((W2 + kThreads - 1) / kThreads, H / 2, B);
-  conv1_pool_kernel<T><<<grid, kThreads, 0, stream>>>(
+  conv1_pool_kernel<T, kNHWC><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(taps), static_cast<const float*>(bias),
       static_cast<T*>(out), H, W, Cout);
   return cudaGetLastError();
@@ -90,15 +96,20 @@ cudaError_t launch(const void* x, const void* taps, const void* bias, void* out,
 }  // namespace
 
 // x: (B, H, W) of dtype; taps: (Cout, 9) float32 (row-major 3x3 per channel);
-// bias: (Cout,) float32; out: (B, Cout, H/2, W/2) of dtype.
+// bias: (Cout,) float32; out: (B, Cout, H/2, W/2) (nhwc = 0) or (B, H/2, W/2, Cout) (nhwc = 1)
+// of dtype.
 extern "C" int i2l_conv1_pool(const void* x, const void* taps, const void* bias, void* out, int B,
-                              int H, int W, int Cout, int dtype, void* stream) {
+                              int H, int W, int Cout, int nhwc, int dtype, void* stream) {
   if (B <= 0 || H < 2 || W < 2 || (H & 1) || (W & 1) || Cout <= 0 || Cout > kMaxCout ||
       H / 2 > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == i2l::kF32) return (int)launch<float>(x, taps, bias, out, B, H, W, Cout, s);
-  if (dtype == i2l::kBF16) return (int)launch<__nv_bfloat16>(x, taps, bias, out, B, H, W, Cout, s);
+  if (dtype == i2l::kF32)
+    return (int)(nhwc ? launch<float, true>(x, taps, bias, out, B, H, W, Cout, s)
+                      : launch<float, false>(x, taps, bias, out, B, H, W, Cout, s));
+  if (dtype == i2l::kBF16)
+    return (int)(nhwc ? launch<__nv_bfloat16, true>(x, taps, bias, out, B, H, W, Cout, s)
+                      : launch<__nv_bfloat16, false>(x, taps, bias, out, B, H, W, Cout, s));
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,11 +11,20 @@ the feature map to the memory:
   (:func:`~img2latex_tpu_torch.ops.conv1_phase.conv1_pool`): NHWC in, NCHW
   out, bias added in float32 as the TPU kernel adds it.
 * Blocks 1..n are ``conv2d`` + ReLU + ``max_pool2d`` on NCHW, as the JAX
-  package leaves them to XLA outside any Pallas kernel.
+  package leaves them to XLA outside any Pallas kernel; or, with
+  ``pallas_chain`` (``hardware.pallas_chain``) and the JAX gate holding (H
+  and W divisible by 2**n_blocks: ``encoder.py:96-108``), the channel-first
+  chain's block (:func:`~img2latex_tpu_torch.ops.conv_cf.convblock_cf`,
+  the counterpart of ``_chain_path``), which adds the bias in float32 and
+  rounds once.  The JAX gate's "backend is a TPU" has no counterpart: on the
+  card the kernels run, on the CPU their plain versions.
 * The vector head flattens NCHW in (c, h, w) order.  The JAX package
   flattens NHWC in (h, w, c) order; :mod:`img2latex_tpu_torch.bridge`
   permutes the head's rows when it loads flax weights.  The grid head takes
   NCHW to (B, W', H', C) first, so its rows are the JAX (h·C + c) already.
+  So the chain path needs no head of its own: the flatten plus the bridge's
+  row permutation is the JAX ``kperm``, and the grid permute the JAX
+  ``einsum("bchw,hce->bwe")`` (``encoder.py:229-243``).
 
 Parameters are kept in float32 and cast to the compute type at use, as flax
 does with ``dtype`` / ``param_dtype``.
@@ -30,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from img2latex_tpu_torch.ops.conv1_phase import conv1_pool
+from img2latex_tpu_torch.ops.conv_cf import convblock_cf
 
 
 class CNNEncoder(nn.Module):
@@ -44,6 +54,7 @@ class CNNEncoder(nn.Module):
         embedding_dim: int = 512,
         output: str = "vector",
         dtype: torch.dtype = torch.float32,
+        pallas_chain: bool = False,
     ):
         super().__init__()
         if output not in ("vector", "grid"):
@@ -56,6 +67,7 @@ class CNNEncoder(nn.Module):
             raise ValueError("block 0 needs an even canvas height and width")
         self.dtype = dtype
         self.output = output
+        self.pallas_chain = bool(pallas_chain)
         self.convs = nn.ModuleList()
         cin, h, w = channels, img_height, img_width
         for filters in conv_filters:
@@ -68,8 +80,13 @@ class CNNEncoder(nn.Module):
         """x (B, H, W, 1) float NHWC -> conv feature map (B, C, H', W') NCHW."""
         x = x.to(self.dtype)
         c0 = self.convs[0]
-        y = conv1_pool(x, c0.weight, c0.bias)
+        y = conv1_pool(x, c0.weight, c0.bias, layout="nchw")
+        scale = 2 ** len(self.convs)
+        chain = self.pallas_chain and x.shape[1] % scale == 0 and x.shape[2] % scale == 0
         for conv in self.convs[1:]:
+            if chain:
+                y = convblock_cf(y, conv.weight, conv.bias)
+                continue
             y = F.conv2d(y, conv.weight.to(self.dtype), conv.bias.to(self.dtype), padding=1)
             y = F.max_pool2d(F.relu(y), 2)
         return y

@@ -80,7 +80,8 @@ def init_weights(model: Seq2SeqModel, seed: int = 0) -> None:
 def build_model(cfg: Config, vocab_size: int, device: Optional[str] = None,
                 seed: int = 0) -> Seq2SeqModel:
     """The CNN-LSTM of ``cfg`` on ``device`` (the card unless ``"cpu"`` is
-    named), computing in ``cfg.hardware.compute_dtype``, with weights from
+    named), computing in ``cfg.hardware.compute_dtype``, its encoder on the
+    channel-first chain with ``cfg.hardware.pallas_chain``, with weights from
     ``numpy.random.default_rng(seed)`` (:func:`init_weights`)."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.hardware.compute_dtype)
@@ -95,6 +96,7 @@ def build_model(cfg: Config, vocab_size: int, device: Optional[str] = None,
         embedding_dim=cfg.model.embedding_dim,
         output=cfg.model.memory,
         dtype=dtype,
+        pallas_chain=bool(cfg.hardware.pallas_chain),
     )
     decoder = LSTMDecoder(
         vocab_size=vocab_size,

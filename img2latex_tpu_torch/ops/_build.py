@@ -40,8 +40,10 @@ I = ctypes.c_int
 F = ctypes.c_float
 # C signature of every exported function: argument types, in order.
 SIGNATURES = {
-    # x, taps, bias, out, B, H, W, Cout, dtype, stream
-    "i2l_conv1_pool": [P, P, P, P, I, I, I, I, I, P],
+    # x, taps, bias, out, B, H, W, Cout, nhwc, dtype, stream
+    "i2l_conv1_pool": [P, P, P, P, I, I, I, I, I, I, P],
+    # x, taps, bias (or null), out, B, Cin, H, W, Cout, nhwc, dtype, stream
+    "i2l_conv_pool": [P] * 4 + [I] * 7 + [P],
     # tokens, emb, E0, x1, E1, h_in, w_ih, w_hh, b, c, h_out, B, H, dtype, stream
     "i2l_lstm_layer_step": [P, P, I, P, I, P, P, P, P, P, P, I, I, I, P],
     # h, w_out, b_out, tokens, finished, out, score, signal, alpha, t, T, B, H, Vp, end_id,
@@ -163,6 +165,20 @@ def check_no_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{name} has no backward: call it under torch.no_grad() or on "
                            "tensors that do not require grad")
+
+
+def recompute_backward(plain, saved, needs, grad: torch.Tensor, *extra) -> tuple:
+    """The backward of an ``autograd.Function`` whose forward is a kernel:
+    autograd of ``plain(*saved, *extra)`` at the saved inputs, recomputing
+    the forward (the route of a JAX custom VJP that linearizes the plain
+    composition).  One gradient for each of ``saved``, None where ``needs``
+    (``ctx.needs_input_grad``) asks for none."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+        out = plain(*leaves, *extra)
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad) if wanted else ())
+    return tuple(next(grads) if need else None for need in needs[:len(saved)])
 
 
 def check(err: int, name: str) -> None:

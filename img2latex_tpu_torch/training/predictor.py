@@ -25,9 +25,12 @@ with the vocab-sample kernel in place of the argmax) from the kernel seed
 of the batch (:func:`batch_seed`); with beam on, the sampling settings are
 ignored, as the JAX package's beam ignores them.  :meth:`Predictor.from_checkpoint`
 rebuilds config, tokenizer and model from a checkpoint of the port's trainer
-(:mod:`img2latex_tpu_torch.utils.checkpoint`); a JAX package's Orbax
-checkpoint is not read (load flax weights with
-:func:`img2latex_tpu_torch.bridge.load_flax_params`).
+(:mod:`img2latex_tpu_torch.utils.checkpoint`), or from a JAX package's
+checkpoint converted by
+:func:`img2latex_tpu_torch.utils.checkpoint.convert_flax_checkpoint`; its
+``use_pallas_chain`` puts the encoder on the channel-first chain
+(``hardware.pallas_chain``).  :meth:`Predictor.predict` decodes one image at
+batch 1, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -84,13 +87,16 @@ class Predictor:
     @classmethod
     def from_checkpoint(cls, path: str, step: Optional[int] = None, batch_size: int = 16,
                         device: Optional[str] = None,
-                        config_overrides: Optional[Dict[str, Any]] = None) -> "Predictor":
+                        config_overrides: Optional[Dict[str, Any]] = None,
+                        use_pallas_chain: Optional[bool] = None) -> "Predictor":
         """Rebuild config, tokenizer, model and weights from one checkpoint
-        directory of the port's trainer (the contract of the JAX package's
+        directory of the port's format (the contract of the JAX package's
         ``Predictor.from_checkpoint``): ``path`` is a checkpoint directory (its
         ``best`` step, else the latest), a ``step_N`` directory, or a directory
-        holding ``checkpoints/``.  ``config_overrides`` maps dotted config
-        paths to values set on the checkpoint's config."""
+        holding ``checkpoints/``.  ``use_pallas_chain`` sets
+        ``hardware.pallas_chain`` when it is not None; then
+        ``config_overrides``, which maps dotted config paths to values, is
+        set on the checkpoint's config and wins, as in the JAX package."""
         ckpt_dir, found_step = ckpt_lib.resolve_checkpoint_path(path)
         if step is None:
             step = found_step if found_step is not None else -1
@@ -98,6 +104,8 @@ class Predictor:
         if "config" not in meta or "tokenizer_config" not in meta:
             raise ValueError(f"Checkpoint at {path} lacks config/tokenizer sidecars")
         cfg = config_from_dict(meta["config"])
+        if use_pallas_chain is not None:
+            cfg.hardware.pallas_chain = bool(use_pallas_chain)
         for dotted, value in (config_overrides or {}).items():
             set_by_path(cfg, dotted, value)
         validate_config(cfg)
@@ -234,4 +242,5 @@ class Predictor:
         return results
 
     def predict(self, image: Any, **kwargs) -> Any:
-        return self.predict_batch([image], **kwargs)[0]
+        """One image, decoded at batch 1 (the JAX ``Predictor.predict``)."""
+        return self.predict_batch([image], batch_size=1, **kwargs)[0]

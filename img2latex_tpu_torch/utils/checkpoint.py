@@ -8,8 +8,18 @@
 ``scheduler``, ``early_stopping``), so a predictor rebuilds config,
 tokenizer and model from one directory.  ``meta.json`` is written last: a
 step directory without it is incomplete and never counts as the latest.  The
-``best`` file names the best step.  Converting a JAX Orbax checkpoint is not
-ported yet.
+``best`` file names the best step.
+
+:func:`convert_flax_checkpoint` writes a JAX package's checkpoint in this
+format.  It imports no orbax: reading the Orbax arrays is the caller's, where
+JAX is installed::
+
+    import jax
+    from img2latex_tpu.utils.checkpoint import restore_checkpoint
+    state, meta = restore_checkpoint("runs/x/checkpoints", step=None)
+    state = jax.device_get(state)
+    convert_flax_checkpoint(state["params"], meta, "runs/x_torch/checkpoints",
+                            step=int(meta["step"]), batch_stats=state.get("batch_stats"))
 """
 
 from __future__ import annotations
@@ -17,7 +27,7 @@ from __future__ import annotations
 import json
 import os
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -93,3 +103,35 @@ def resolve_checkpoint_path(path: str | Path) -> Tuple[Path, Optional[int]]:
     if (p / "checkpoints").is_dir():
         return p / "checkpoints", None
     return p, None
+
+
+def convert_flax_checkpoint(params: Mapping[str, Any], meta: Dict[str, Any], ckpt_dir: str | Path,
+                            step: int, batch_stats: Optional[Mapping[str, Any]] = None) -> Path:
+    """Write a JAX package's checkpoint as the port's ``step_<step>/``.
+
+    ``params`` is the flax parameter tree as nested dicts of numpy arrays
+    (``state["params"]`` of the JAX ``restore_checkpoint``, after
+    ``jax.device_get``), ``meta`` the JAX ``meta.json`` dict (``config``,
+    ``tokenizer_config``, ``step``, ...).  The tree is mapped by
+    :func:`img2latex_tpu_torch.bridge.load_flax_params` onto
+    ``build_model(config, vocab, device="cpu")``, which checks every leaf
+    and every parameter; ``meta`` is kept as it is, with ``step`` set.  The
+    step holds the model only: Optax's optimizer state is not converted, so
+    the step serves :meth:`~img2latex_tpu_torch.training.predictor.Predictor.from_checkpoint`
+    and not a trainer's resume.  ``batch_stats`` (BatchNorm, the ResNet
+    encoder's) must be empty: that model is not ported."""
+    from img2latex_tpu_torch.bridge import load_flax_params
+    from img2latex_tpu_torch.config import config_from_dict
+    from img2latex_tpu_torch.data.tokenizer import LaTeXTokenizer
+    from img2latex_tpu_torch.models.seq2seq import build_model
+
+    if batch_stats:
+        raise NotImplementedError("batch_stats (BatchNorm of the ResNet encoder) are not ported")
+    if "config" not in meta or "tokenizer_config" not in meta:
+        raise ValueError("meta lacks the config/tokenizer_config sidecars")
+    cfg = config_from_dict(meta["config"])
+    vocab = LaTeXTokenizer.from_config(meta["tokenizer_config"]).vocab_size
+    model = load_flax_params(build_model(cfg, vocab, device="cpu"), params)
+    out_meta = json.loads(json.dumps(meta))  # a copy, and a check that it is JSON
+    out_meta["step"] = int(step)
+    return save_checkpoint(ckpt_dir, {"model": model.state_dict(), "step": int(step)}, out_meta, int(step))

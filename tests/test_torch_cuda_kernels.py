@@ -12,7 +12,11 @@ logits spill to device memory, and whole sampling decodes; the training
 LSTM's forward and backward with an odd batch, one step, a hidden width that
 is not a multiple of the tile, zero and random initial states, and its
 gradients against a float64 plain layer; conv1_pool's backward; the kernels
-without a backward refusing inputs that require grad) at small sizes.
+without a backward refusing inputs that require grad; the conv-pool kernel
+of the channel-first chain and of ``fused_conv_relu_pool`` at odd channel
+counts, heights and widths in both layouts, conv1_pool's NHWC output, a
+non-contiguous input refused, a refused launch reported, and
+``convblock_cf``'s backward) at small sizes.
 Marked ``cuda``: without a CUDA device every test skips.  Imports no JAX, so
 it runs on the card's machine with
 
@@ -24,7 +28,11 @@ import pytest
 import torch
 
 from img2latex_tpu_torch.decoding.decode import DecodeConfig
+from img2latex_tpu_torch.ops import _build
+from img2latex_tpu_torch.ops.conv1_lane import conv1_lane_relu_pool, conv1_lane_relu_pool_plain
 from img2latex_tpu_torch.ops.conv1_phase import conv1_pool, conv1_pool_plain
+from img2latex_tpu_torch.ops.conv_cf import convblock_cf, convblock_cf_plain, fused_convblock_cf
+from img2latex_tpu_torch.ops.conv_pool import fused_conv_relu_pool, fused_conv_relu_pool_plain
 from img2latex_tpu_torch.ops import lstm_train as lt
 from img2latex_tpu_torch.ops import beam_decode as bd
 from img2latex_tpu_torch.ops import decode_step as ds
@@ -685,3 +693,109 @@ def test_kernels_without_backward_refuse_grad(dev):
         _run_beam_step(bd.beam_step, op, 2)
     with torch.no_grad():
         ds.vocab_argmax_step(h, w_out, b_out, tok, fin, None, 0, 2, 0)  # under no_grad it runs
+
+
+# B, Cin, Cout, H, W: odd channel counts, a Cout that is not a multiple of the
+# 64-channel tile, widths and heights that are not multiples of the 4 x 16
+# pooled tile, and Cout above one tile
+CONV_SHAPES = [(5, 3, 12, 8, 12), (5, 33, 12, 8, 12), (2, 1, 70, 6, 34), (1, 8, 130, 4, 66)]
+
+
+def _conv_close(got, ref, dtype):
+    """float32: sums in another order; bf16: one rounding step of |ref|."""
+    scale = max(ref.float().abs().max().item(), 1.0)
+    rtol = 0 if dtype == torch.float32 else BF16_ULP
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-5 * scale, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_convblock_cf(dev, dtype, shape):
+    B, Cin, Cout, H, W = shape
+    rng = np.random.default_rng(sum(shape))
+    x = _t(rng.normal(size=(B, Cin, H, W)), dev, dtype)
+    w = _t(rng.normal(size=(Cout, Cin, 3, 3)) / np.sqrt(9 * Cin), dev)
+    b = _t(rng.normal(size=Cout) * 0.1, dev)
+    before = convblock_cf.launches
+    with torch.no_grad():
+        got = fused_convblock_cf(x, w, b)
+    assert convblock_cf.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (B, Cout, H // 2, W // 2)
+    _conv_close(got, convblock_cf_plain(x, w, b), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+def test_fused_conv_relu_pool(dev, dtype, shape):
+    B, Cin, Cout, H, W = shape
+    rng = np.random.default_rng(sum(shape) + 1)
+    x = _t(rng.normal(size=(B, H, W, Cin)), dev, dtype)
+    w = _t(rng.normal(size=(Cout, Cin, 3, 3)) / np.sqrt(9 * Cin), dev)
+    before = fused_conv_relu_pool.launches
+    got = fused_conv_relu_pool(x, w)
+    assert fused_conv_relu_pool.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (B, H // 2, W // 2, Cout)
+    _conv_close(got, fused_conv_relu_pool_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 6, 10, 5), (1, 4, 300, 128)])
+def test_conv1_pool_nhwc(dev, dtype, shape):
+    B, H, W, C = shape
+    rng = np.random.default_rng(sum(shape) + 2)
+    x = _t(rng.uniform(-1, 1, (B, H, W, 1)), dev, dtype)
+    w = _t(rng.normal(size=(C, 1, 3, 3)) / 3, dev)
+    b = _t(rng.normal(size=C) * 0.1, dev)
+    got = conv1_pool(x, w, b, layout="nhwc")
+    assert tuple(got.shape) == (B, H // 2, W // 2, C)
+    _conv_close(got, conv1_pool_plain(x, w, b, layout="nhwc"), dtype)
+    torch.testing.assert_close(got, conv1_pool(x, w, b, layout="nchw").permute(0, 2, 3, 1), atol=0, rtol=0)
+    _conv_close(conv1_lane_relu_pool(x, w), conv1_lane_relu_pool_plain(x, w), dtype)
+
+
+def test_conv_pool_refuses_bad_input(dev):
+    """A non-contiguous input, an odd width, a wrong weight are refused
+    before a launch; a launch the C side refuses is reported."""
+    x = torch.zeros(1, 4, 8, 8, device=dev)
+    w, b = torch.zeros(6, 4, 3, 3, device=dev), torch.zeros(6, device=dev)
+    before = convblock_cf.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_convblock_cf(x.transpose(2, 3), w, b)
+    with pytest.raises(ValueError):
+        fused_convblock_cf(torch.zeros(1, 4, 8, 7, device=dev), w, b)
+    with pytest.raises(ValueError):
+        fused_conv_relu_pool(torch.zeros(1, 8, 8, 3, device=dev), w)
+    with pytest.raises(TypeError):
+        fused_convblock_cf(x.half(), w, b)
+    assert convblock_cf.launches == before
+    out = torch.empty(1, 6, 4, 4, device=dev)
+    err = _build.lib().i2l_conv_pool(x.data_ptr(), w.data_ptr(), None, out.data_ptr(),
+                                     1, 4, 5, 8, 6, 0, 0, torch.cuda.current_stream().cuda_stream)  # odd H
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(err, "i2l_conv_pool")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_convblock_cf_backward(dev, dtype):
+    """convblock_cf's backward (autograd of the plain version, recomputing
+    the forward) equals autograd of convblock_cf_plain; the forward-only
+    wrappers refuse inputs that require grad."""
+    rng = np.random.default_rng(6)
+    x = _t(rng.normal(size=(3, 5, 8, 12)), dev, dtype)
+    w, b = _t(rng.normal(size=(7, 5, 3, 3)) / 6, dev), _t(rng.normal(size=7) * 0.1, dev)
+    g = _t(rng.normal(size=(3, 7, 4, 6)), dev, dtype)
+    grads = []
+    for fn in (convblock_cf, convblock_cf_plain):
+        leaves = [x.clone().requires_grad_(), w.clone().requires_grad_(), b.clone().requires_grad_()]
+        grads.append(torch.autograd.grad(fn(*leaves), leaves, g))
+    # cuDNN's gradient sums may change order from call to call: in bf16 a
+    # float32 dx may then round to the neighbouring bf16 value
+    rtol = 1e-5 if dtype == torch.float32 else BF16_ULP
+    for a, r in zip(*grads):
+        torch.testing.assert_close(a, r, atol=1e-5, rtol=rtol)
+    assert grads[0][1].abs().max().item() > 0
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_convblock_cf(x.clone().requires_grad_(), w, b)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_conv_relu_pool(x.permute(0, 2, 3, 1).contiguous(), w.clone().requires_grad_())
