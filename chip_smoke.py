@@ -35,6 +35,14 @@ and two broken ``convblock_cf`` that must fail; ``convblock_cf``'s backward,
 a train step on the chain against the plain path, and phase 16's checkpoint
 loaded with ``use_pallas_chain=True``.
 
+The bf16 ``lstm_layer_step`` and conv-pool kernels run on the tensor cores
+(``mma.sync``): the build's SASS must hold HMMA instructions in each of their
+instantiations (where the toolkit has ``cuobjdump``), and phase 3 holds
+``lstm_layer_step`` in bf16 against its plain version at both widths, both
+layers, 512 and 2560 rows and a ragged shape.  Kernels of a few tens of
+microseconds are timed by CUDA-graph replay (device time; ``graph_ms``)
+beside the eager time, which the host's enqueueing bounds.
+
 Prints its findings on earlier lines, then a ``{"kernels": [...]}`` line,
 the card's name and power limit from nvidia-smi, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
@@ -221,6 +229,37 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 50, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured into a
+    CUDA graph, replayed ``reps`` times between CUDA events.  Unlike
+    :func:`time_ms` it leaves out the host's time to enqueue each launch,
+    which exceeds the device time of a launch of a few tens of microseconds.
+    ``fn`` must launch on the current stream (PyTorch's own calls allocate
+    from the graph's pool)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -281,6 +320,53 @@ def card_line() -> str:
     )
     return out.stdout.strip().splitlines()[0]
 
+# The bf16 kernels redesigned for the tensor cores: each instantiation's SASS
+# must hold HMMA (mma.sync) or HGMMA (wgmma) instructions.
+TENSOR_CORE_KERNELS = ("lstm_layer_step_tc_kernel", "conv_pool_tc_kernel")
+
+
+def sass_mma_counts(lib_path):
+    """{mangled kernel name: count of HMMA / HGMMA instructions} in the
+    library's SASS (``cuobjdump -sass``), or None where the toolkit has no
+    cuobjdump."""
+    import re
+    import shutil
+
+    exe = shutil.which("cuobjdump") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    out = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True, timeout=600, check=True)
+    counts, cur = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts.setdefault(cur, 0)
+        elif cur is not None and re.search(r"\bHG?MMA\.", line):
+            counts[cur] += 1
+    return counts
+
+
+def check_tensor_core_build(lib_path) -> None:
+    """Log the dynamic shared memory of each redesigned kernel and its
+    tensor-core instruction count (from its SASS); fail if a redesigned
+    kernel is missing or has no HMMA / HGMMA.  Their registers and spills
+    are among the ptxas lines that main logs."""
+    from img2latex_tpu_torch.ops import _build
+
+    log(f"dynamic shared memory a block: lstm_layer_step_tc_kernel {_build.lib().i2l_lstm_tc_smem_bytes()} bytes, "
+        f"conv_pool_tc_kernel {_build.lib().i2l_conv_tc_smem_bytes()} bytes")
+    counts = sass_mma_counts(lib_path)
+    if counts is None:
+        log("cuobjdump not found: tensor-core instruction counts not measured")
+        return
+    for k in TENSOR_CORE_KERNELS:
+        found = {name: n for name, n in counts.items() if k in name}
+        log(f"SASS HMMA/HGMMA counts of {k}: {json.dumps(found)}")
+        check(len(found) > 0, f"{k} is not in the library's SASS")
+        check(all(n > 0 for n in found.values()), f"{k}: an instantiation runs no tensor-core instruction")
+
+
 def log_profile(what: str, card: str, fn) -> None:
     """Run ``fn`` once under torch.profiler and log the device time of each
     of the port's kernels (summed over launches) and the device busy share."""
@@ -297,7 +383,7 @@ def log_profile(what: str, card: str, fn) -> None:
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0) or 0
         if t > 0:
-            key = next((k for k in ("attend_hw_kernel", "attend_kernel", "lstm_layer_step_kernel",
+            key = next((k for k in ("attend_hw_kernel", "attend_kernel", "lstm_layer_step_tc_kernel", "lstm_layer_step_kernel",
                                     "vocab_argmax_step_kernel", "beam_step_kernel", "vocab_sample_step_kernel")
                         if k in e.key), "other")
             ms, n = by_kernel.get(key, (0.0, 0))
@@ -309,6 +395,62 @@ def log_profile(what: str, card: str, fn) -> None:
             f"{json.dumps({k: [round(ms, 4), n] for k, (ms, n) in by_kernel.items()})} [{card}]")
     else:
         log(f"{what} under torch.profiler: no device time seen (not measured)")
+
+
+# lstm_layer_step in bf16 (the tensor-core kernel) against its plain version at
+# the main path's shapes: (name, rows, E0, E1, H) for layer 0 (the embedding
+# gather, E0 > 0) and layer 1 (E0 = 0, x1 the layer below's h) of each width,
+# at the batch and at the beam's 2560 rows, and a ragged shape (rows past a
+# tile, H odd: rows of 4H bf16 that are not 16-byte multiples).
+LSTM_STEP_SHAPES = [(f"{w} {layer}", rows, E0, E1, H)
+                    for rows in (BATCH, BEAM * BATCH)
+                    for w, E, H in (("vector", EMBED, HIDDEN), ("grid", GRID_EMBED, GRID_HIDDEN))
+                    for layer, E0, E1 in (("layer 0", E, E), ("layer 1", 0, H))] + [
+    ("ragged layer 0", 70, 24, 24, 33), ("ragged layer 1", 70, 0, 33, 33)]
+
+
+def phase_lstm_step_shapes(dev, card: str) -> dict:
+    """The bf16 lstm_layer_step kernel against lstm_layer_step_plain on the
+    same operands at LSTM_STEP_SHAPES, h and c within STEP_ATOL["bfloat16"];
+    each timed by CUDA-graph replay (device time).  Returns {name: (ms, max
+    abs error of h and c)}.  Its operands come from a generator of its own, so
+    that the later phases draw the same data whether or not it runs."""
+    import torch
+
+    from img2latex_tpu_torch.ops.decode_step import lstm_layer_step, lstm_layer_step_plain
+
+    rng = np.random.default_rng(SEED + 10)
+
+    def bf(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, torch.bfloat16)
+
+    res = {}
+    for name, rows, E0, E1, H in LSTM_STEP_SHAPES:
+        K = E0 + E1 + H
+        tok = torch.from_numpy(rng.integers(0, VOCAB, rows).astype(np.int32)).to(dev) if E0 else None
+        emb = bf(rng.normal(size=(VOCAB, E0))) if E0 else None
+        x1, h = bf(rng.normal(size=(rows, E1))), bf(rng.uniform(-1, 1, (rows, H)))
+        w_ih, w_hh = bf(rng.normal(size=(E0 + E1, 4 * H)) / np.sqrt(K)), bf(rng.normal(size=(H, 4 * H)) / np.sqrt(K))
+        b = torch.from_numpy(rng.normal(size=4 * H).astype(np.float32) * BIAS_STD).to(dev)
+        c0 = bf(rng.uniform(-1, 1, (rows, H)))
+        outs = []
+        for step in (lstm_layer_step, lstm_layer_step_plain):
+            c, h_out = c0.clone(), torch.empty_like(h)
+            step(tok, emb, x1, h, w_ih, w_hh, b, c, h_out)
+            outs.append((c, h_out))
+        (ck, hk), (cp, hp) = outs
+        err_h = (hk.float() - hp.float()).abs().max().item()
+        err_c = (ck.float() - cp.float()).abs().max().item()
+        check(bool(hk.float().isfinite().all().item() and ck.float().isfinite().all().item()),
+              f"lstm_layer_step bf16 {name}: non-finite output")
+        check(err_h <= STEP_ATOL["bfloat16"] and err_c <= STEP_ATOL["bfloat16"],
+              f"lstm_layer_step bf16 {name} rows={rows}: h err {err_h}, c err {err_c} > {STEP_ATOL['bfloat16']}")
+        c = c0.clone()
+        ms = graph_ms(lambda: lstm_layer_step(tok, emb, x1, h, w_ih, w_hh, b, c, h_out))
+        res[f"{name} rows={rows}"] = (ms, max(err_h, err_c))
+        log(f"lstm_layer_step bf16 {name} rows={rows} (E0={E0}, E1={E1}, H={H}): h max abs err {err_h:.3g}, "
+            f"c {err_c:.3g} (tol {STEP_ATOL['bfloat16']}); {ms:.4f} ms (device, CUDA graph) [{card}]")
+    return res
 
 
 def phase_attend(dev, rng, card: str, kernels: dict) -> None:
@@ -391,6 +533,18 @@ def _decoders(kind: str, model, ctx_or_memory, dtype):
     u = gd.grid_memory_proj(att, mem)
     return (lambda **kw: gd.grid_greedy_decode(packed, att, mem, u, MAX_LEN, 1, END_ID, 0, **kw),
             lambda **kw: gd.grid_greedy_decode_plain(packed, att, mem, u, MAX_LEN, 1, END_ID, 0, **kw))
+
+
+def grid_memory(rng, dev):
+    """A random grid memory (BATCH, GRID_S, GRID_EMBED) whose rows differ in
+    scale and mean, so that the attention (nearly uniform with random
+    weights) gives rows distinct contexts."""
+    import torch
+
+    gmem = (np.maximum(rng.standard_normal((BATCH, GRID_S, GRID_EMBED), dtype=np.float32), 0)
+            * rng.uniform(0, 3, (BATCH, 1, 1)).astype(np.float32)
+            + 2 * np.maximum(rng.standard_normal((BATCH, 1, GRID_EMBED), dtype=np.float32), 0))
+    return torch.from_numpy(gmem).to(dev)
 
 
 def phase_grid_decode(gmodel, memory) -> None:
@@ -1967,7 +2121,7 @@ def phase_chain_kernels(dev, rng, card: str, kernels: dict) -> None:
         b = torch.from_numpy(rng.standard_normal(Cout, dtype=np.float32) * 0.1).to(dev)
         return x, w, b
 
-    err = {"cf": 0.0, "nhwc": 0.0}
+    err = {"cf": 0.0, "nhwc": 0.0, "cf_bf16": 0.0, "nhwc_bf16": 0.0}
     shapes = [(BATCH,) + blk for blk in CHAIN_BLOCKS] + list(CHAIN_ODD)
     with torch.no_grad():
         for shape in shapes:
@@ -1978,8 +2132,9 @@ def phase_chain_kernels(dev, rng, card: str, kernels: dict) -> None:
                 xh = x.permute(0, 2, 3, 1).contiguous()
                 e2 = _check_conv(f"fused_conv_relu_pool {shape}", fused_conv_relu_pool(xh, w),
                                  fused_conv_relu_pool_plain(xh, w), name)
-                if name == "float32" and shape[0] == BATCH:
-                    err["cf"], err["nhwc"] = max(err["cf"], e), max(err["nhwc"], e2)
+                if shape[0] == BATCH:
+                    sfx = "" if name == "float32" else "_bf16"
+                    err["cf" + sfx], err["nhwc" + sfx] = max(err["cf" + sfx], e), max(err["nhwc" + sfx], e2)
                 del x, xh
             del x32
         torch.cuda.empty_cache()
@@ -2017,12 +2172,12 @@ def phase_chain_kernels(dev, rng, card: str, kernels: dict) -> None:
         src = "img2latex_tpu_torch/csrc/conv_pool.cu"
         kernels["convblock_cf"] = dict(
             name="convblock_cf", route="cuda", source=src, replaces="img2latex_tpu/ops/pallas/conv_cf.py:170",
-            max_abs_err=err["cf"], ms=t["cf"], plain_ms=t["cf_p"], bound_ms=t["bound_cf"], bound_by=by,
-            library_ms=t["cf_l"])
+            max_abs_err=err["cf"], max_abs_err_bf16=err["cf_bf16"], ms=t["cf"], plain_ms=t["cf_p"],
+            bound_ms=t["bound_cf"], bound_by=by, library_ms=t["cf_l"])
         kernels["fused_conv_relu_pool"] = dict(
             name="fused_conv_relu_pool", route="cuda", source=src, replaces="img2latex_tpu/ops/pallas/conv_pool.py:101",
-            max_abs_err=err["nhwc"], ms=t["nhwc"], plain_ms=t["nhwc_p"], bound_ms=t["bound_nhwc"], bound_by=by,
-            library_ms=t["nhwc_l"])
+            max_abs_err=err["nhwc"], max_abs_err_bf16=err["nhwc_bf16"], ms=t["nhwc"], plain_ms=t["nhwc_p"],
+            bound_ms=t["bound_nhwc"], bound_by=by, library_ms=t["nhwc_l"])
 
         # conv1_pool's NHWC output (conv1_lane_relu_pool with a zero bias)
         u8 = torch.from_numpy(rng.integers(0, 256, size=(BATCH, IMG_H, IMG_W, 1), dtype=np.uint8)).to(dev)
@@ -2363,6 +2518,7 @@ def main() -> int:
         for line in ptxas.read_text().splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log("  ptxas: " + line.split("ptxas info    : ")[-1].strip())
+    check_tensor_core_build(_build.library_path())
 
     # ---- phase 2: kernel 1, conv1 + bias + ReLU + pool ---------------------
     u8 = rng.integers(0, 256, size=(64, IMG_H, IMG_W, 1), dtype=np.uint8)
@@ -2478,9 +2634,16 @@ def main() -> int:
 
     cell = torch.nn.LSTMCell(2 * EMBED, HIDDEN, device=dev, dtype=torch.bfloat16)
     xcell = torch.cat([packed["emb"][tok.long()], ctxb], dim=-1)
-    ms_lk = time_ms(lambda: layers(lstm_layer_step), iters=20) / LAYERS
-    ms_lp = time_ms(lambda: layers(lstm_layer_step_plain), iters=20) / LAYERS
-    ms_ll = time_ms(lambda: cell(xcell, (hh[0], cc[0])), iters=20)
+    # eagerly (each launch enqueued by the host, as the decode loop does) and
+    # by CUDA-graph replay (device time alone): at tens of microseconds a
+    # launch the host's enqueue time exceeds the device's
+    ms_lk_e = time_ms(lambda: layers(lstm_layer_step), iters=20) / LAYERS
+    ms_lp_e = time_ms(lambda: layers(lstm_layer_step_plain), iters=20) / LAYERS
+    with torch.no_grad():
+        ms_ll_e = time_ms(lambda: cell(xcell, (hh[0], cc[0])), iters=20)
+        ms_ll = graph_ms(lambda: cell(xcell, (hh[0], cc[0])))
+    ms_lk = graph_ms(lambda: layers(lstm_layer_step)) / LAYERS
+    ms_lp = graph_ms(lambda: layers(lstm_layer_step_plain)) / LAYERS
     H4, Vp = 4 * HIDDEN, packed["vocab_padded"]
     # bytes: weights, bias, x (layer 0: ctx, tokens, the emb table), h in, c in/out, h out
     lb = ((2 * EMBED + HIDDEN) * H4 * 2 + H4 * 4 + BATCH * EMBED * 2 + BATCH * 4 + Vp * EMBED * 2
@@ -2494,16 +2657,22 @@ def main() -> int:
                            2 * BATCH * HIDDEN * Vp, "bfloat16")
     ms_dk = time_ms(lambda: greedy_decode(packed, ctxb, MAX_LEN, 1, END_ID, 0), iters=3, warmup=1)
     ms_dp = time_ms(lambda: greedy_decode_plain(packed, ctxb, MAX_LEN, 1, END_ID, 0), iters=3, warmup=1)
-    log(f"lstm_layer_step bf16 B={BATCH} (mean of layers 0 and 1): kernel {ms_lk:.4f} ms, plain {ms_lp:.4f} ms, "
-        f"nn.LSTMCell (layer 0, no gather) {ms_ll:.4f} ms, bound {bnd_l:.4f} ms ({by_l}) [{card}]")
+    log(f"lstm_layer_step bf16 B={BATCH} (mean of layers 0 and 1), device time (CUDA graph): kernel {ms_lk:.4f} ms, "
+        f"plain {ms_lp:.4f} ms, nn.LSTMCell (layer 0, no gather) {ms_ll:.4f} ms, bound {bnd_l:.4f} ms ({by_l}); "
+        f"enqueued eagerly: kernel {ms_lk_e:.4f} ms, plain {ms_lp_e:.4f} ms, nn.LSTMCell {ms_ll_e:.4f} ms [{card}]")
+    step_shapes = phase_lstm_step_shapes(dev, card)
     log(f"vocab_argmax_step bf16 B={BATCH}: kernel {ms_vk:.4f} ms, plain {ms_vp:.4f} ms, "
         f"bound {bnd_v:.4f} ms ({by_v}) [{card}]")
     log(f"greedy_decode bf16 B={BATCH} T={MAX_LEN}: kernels {ms_dk:.3f} ms, plain {ms_dp:.3f} ms [{card}]")
     src = "img2latex_tpu_torch/csrc/greedy_decode.cu"
     rep = "img2latex_tpu/ops/pallas/decode_step.py:523"
+    # ms, plain_ms and library_ms by CUDA-graph replay; max_abs_err_bf16 is
+    # the tensor-core kernel's at the shapes that ms is taken at
     kernels["lstm_layer_step"] = dict(
         name="lstm_layer_step", route="cuda", source=src, replaces=rep, max_abs_err=step_errs["float32"][0],
-        ms=ms_lk, plain_ms=ms_lp, bound_ms=bnd_l, bound_by=by_l, library_ms=ms_ll)
+        max_abs_err_bf16=max(e for k, (_, e) in step_shapes.items()
+                             if k.startswith("vector") and k.endswith(f"rows={BATCH}")),
+        ms=ms_lk, plain_ms=ms_lp, bound_ms=bnd_l, bound_by=by_l, library_ms=ms_ll, ms_method="cuda_graph")
     kernels["vocab_argmax_step"] = dict(
         name="vocab_argmax_step", route="cuda", source=src, replaces=rep, max_abs_err=step_errs["float32"][1],
         ms=ms_vk, plain_ms=ms_vp, bound_ms=bnd_v, bound_by=by_v, library_ms=None)
@@ -2562,12 +2731,7 @@ def main() -> int:
     gcfg = grid_config()
     gmodel = build_model(gcfg, VOCAB, seed=SEED + 1)  # on the card: no device named
     draw_biases(gmodel, rng)
-    # a random grid memory whose rows differ in scale and mean, so that the
-    # attention (nearly uniform with random weights) gives rows distinct contexts
-    gmem = (np.maximum(rng.standard_normal((BATCH, GRID_S, GRID_EMBED), dtype=np.float32), 0)
-            * rng.uniform(0, 3, (BATCH, 1, 1)).astype(np.float32)
-            + 2 * np.maximum(rng.standard_normal((BATCH, 1, GRID_EMBED), dtype=np.float32), 0))
-    gmem = torch.from_numpy(gmem).to(dev)
+    gmem = grid_memory(rng, dev)
     phase_grid_decode(gmodel, gmem)
 
     # ---- phase 6: early exit and scores, both memory kinds ------------------
@@ -2632,8 +2796,15 @@ def main() -> int:
              "beam_step", f"attend_step[rows_per_mem={BEAM}]", "vocab_sample_step", "lstm_seq_fwd",
              "lstm_seq_bwd", "conv1_pool_bwd", "convblock_cf", "convblock_cf_bwd", "fused_conv_relu_pool",
              "conv1_pool[nhwc]")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+    # max_abs_err is the float32 instantiation's; max_abs_err_bf16 that of a
+    # bf16 kernel which is not the float32 one (the tensor-core kernels), else
+    # null.  ms_method: "eager" (CUDA events around calls the host enqueues)
+    # or "cuda_graph" (device time, graph_ms); the row's three times share it.
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "max_abs_err_bf16", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_method")
+    for n in order:
+        kernels[n].setdefault("max_abs_err_bf16", None)
+        kernels[n].setdefault("ms_method", "eager")
     print(json.dumps({"kernels": [{k: kernels[n][k] for k in keys} for n in order]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,27 +22,69 @@
 //                     signal (decode_step.py:327-372) added to a per-row
 //                     score; logits never reach device memory.
 //
-// Bound: per row and step the products are 2 (2E + H) 4H + 2 H 4H + 2 H Vp
-// FLOP = 11 MFLOP at E = H = Vp = 512, while the weights (11.5 MB in bf16)
-// are shared by all rows: at batch 512 that is about 490 FLOP per byte of
-// device memory, above the H100's ~295, so a large batch is bound by the
-// tensor-core rate.  This first version multiplies on the CUDA cores in
-// float32 (simple and exact for both storage types): its limit is the
-// float32 FMA rate; moving the products to wgmma is later work.
+// Bound of lstm_layer_step: 2 B K 4H FLOP (K = E0 + E1 + H) on K 4H weights
+// that all rows share.  At the vector width (B = 512, H = 512, K = 1536 and
+// 1024) that is 2.7 GFLOP a launch (mean of the two layers) against ~5.8 MB,
+// ~460 FLOP a byte, above the H100's ~295 in bf16: bound by operations,
+// 0.0027 ms at 989 TFLOP/s; at the grid width (H = 384, K = 896 and 768)
+// 0.0013 ms; at 2560 beam rows 5x the FLOP on nearly the same bytes.
 //
-// Both kernels are register-tiled products over shared-memory tiles, with
-// 256 threads a block and float32 accumulation:
-//   lstm_layer_step: a block takes 64 rows x 32 hidden units, i.e. the 128
-//     gate columns {g H + j} of those units, so each thread ends holding all
-//     four gates of its 4 rows x 2 units and can apply the cell update.
-//   vocab_argmax_step: a block takes 16 rows and walks all Vp columns in
-//     chunks of 128, each thread keeping a running (max, index) of its row;
-//     the 16 threads of a row then reduce with warp shuffles.  For a score
-//     a thread also keeps the runner-up (the largest logit outside the
-//     chosen column, a tie giving margin 0, as masking the argmax column
-//     does) and an online sum of exp(l - max) and of exp(l - max) (l - max)
-//     for the logsumexp and the entropy.
+// Two kernels compute it, by storage type:
+//   float32: lstm_layer_step_kernel, products on the CUDA cores in float32
+//     (exact for float32 storage: the oracle whose tokens must equal the
+//     plain version's).  A block takes 64 rows x 32 hidden units, i.e. the
+//     128 gate columns {g H + j} of those units, so each thread ends holding
+//     all four gates of its 4 rows x 2 units and applies the cell update.
+//   bf16: lstm_layer_step_tc_kernel, products on the tensor cores
+//     (mma.sync m16n8k16, bf16 operands, float32 sums: what the TPU kernel's
+//     MXU product with preferred_element_type=float32 computes, with the sums
+//     in another order).  The same block tile, 64 rows x 32 units x 4 gates,
+//     keeps the cell update in the epilogue, in registers: 8 warps as 2 (rows)
+//     x 4 (units), a warp 32 rows x 8 units x 4 gates, i.e. 2 x 4 m16n8
+//     tiles whose n8 tiles are the four gates of the same 8 units, so each
+//     lane holds the four gates of 4 rows x 2 units.  A and B tiles are
+//     staged in bf16, untouched, through a ring of cp.async 16-byte copies
+//     (rows padded by 16 bytes so that ldmatrix meets no bank conflict);
+//     layer 0's embedding gather is the A loader's source for k < E0 (read
+//     through L1: rows that share a token, as all do at the first step, then
+//     hit L1 instead of one L2 line), so x never reaches device memory.  Each
+//     stage's products are summed by the tensor cores from zero and added to
+//     the running sums in IEEE float32, so that the tensor cores' additions
+//     (which truncate) run over 64 products at most, not all of K.
+//     scripts/bf16_parting.py counts the bf16 decode rows that part from the
+//     plain version's tokens on several data draws, for this tree and for
+//     another (an earlier tree's CUDA-core kernel); PERF.md §6 has both.
+//     Shapes whose rows are not 16-byte multiples (E0, E1 or H
+//     not a multiple of 8, or an unaligned pointer) take the same kernel
+//     with a guarded element-wise loader; rows past B and units past H are
+//     masked, K is zero-filled past its end.
+//     Tile and ring: at B = 512 the grid is 128 blocks (vector) or 96 (grid
+//     width), under one wave of 132 SMs, so the depth of the load pipeline
+//     matters more than reuse.  64 rows x 32 units keeps 8 warps a block and
+//     the four gates of a unit in one block; 64-deep stages halve the ring's
+//     barriers against 32-deep ones, and three of them (79,872 bytes of
+//     dynamic shared memory) keep two stages in flight while one is summed.
+//     Taller tiles (128 rows, 16 warps) or shorter ones (32 rows) were slower
+//     at every shape of the main path when the tile was chosen.  What holds
+//     it: 128 blocks on 132 SMs, each walking all of K alone, and the L2
+//     traffic of reading each weight tile once a row block and each A tile
+//     once a unit block, with 2 warps a scheduler to hide the ldmatrix and
+//     mma latencies; a K split across a cluster (partial sums reduced through
+//     distributed shared memory before the cell update), TMA multicast of the
+//     weights and wgmma are the next steps (ROADMAP.md queue 2).
+//     ptxas (sm_90a, CUDA 12.8): 128 registers (aligned loader) and 114
+//     (guarded), no spills; the first build, one 32-deep 4-stage ring summed
+//     in the tensor cores alone, 93 and 80.
+// vocab_argmax_step is a register-tiled float32 product over shared-memory
+// tiles, 256 threads a block: a block takes 16 rows and walks all Vp columns
+// in chunks of 128, each thread keeping a running (max, index) of its row;
+// the 16 threads of a row then reduce with warp shuffles.  For a score a
+// thread also keeps the runner-up (the largest logit outside the chosen
+// column, a tie giving margin 0, as masking the argmax column does) and an
+// online sum of exp(l - max) and of exp(l - max) (l - max) for the logsumexp
+// and the entropy.
 #include "common.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -150,6 +192,215 @@ __global__ void __launch_bounds__(kThreads) lstm_layer_step_kernel(
       const float h_new = sigmoidf_(go) * tanhf(c_new);
       c[o] = i2l::from_f<T>(c_new);
       h_out[o] = i2l::from_f<T>(h_new);
+    }
+  }
+}
+
+// ---- lstm_layer_step, bf16, tensor cores ------------------------------------
+// The block tile is T_WM x T_WN warps of 32 rows x 8 units (the head note says why this one).
+using bf16 = __nv_bfloat16;
+constexpr int T_WM = 2;                           // warps along rows
+constexpr int T_WN = 4;                           // warps along hidden units
+constexpr int T_THREADS = 32 * T_WM * T_WN;
+constexpr int T_BM = 32 * T_WM;                   // rows per block
+constexpr int T_HU = 8 * T_WN;                    // hidden units per block
+constexpr int T_BN = 4 * T_HU;                    // gate columns per block
+constexpr int T_BK = 64;                          // depth of one stage
+constexpr int T_STAGES = 3;                       // depth of the cp.async ring
+constexpr int T_APITCH = T_BK + 8;                // A row: 16 bytes of padding, ldmatrix rows on distinct banks
+constexpr int T_BPITCH = T_BN + 8;                // B row: likewise
+constexpr int T_A_ELEMS = T_BM * T_APITCH;
+constexpr int T_STAGE_ELEMS = T_A_ELEMS + T_BK * T_BPITCH;
+constexpr int T_SMEM = T_STAGES * T_STAGE_ELEMS * (int)sizeof(bf16);  // 79,872 bytes at 2 x 4 warps, 64 deep, 3 stages
+static_assert(T_BK % 16 == 0 && T_STAGES >= 2, "k16 steps; a ring of at least two stages");
+static_assert((T_STAGE_ELEMS * (int)sizeof(bf16)) % 16 == 0, "16-byte aligned stages");
+
+constexpr int T_A_CHUNKS = T_BM * T_BK / 8 / T_THREADS;  // 16-byte chunks of A a thread copies a stage
+constexpr int T_B_CHUNKS = T_BK * T_BN / 8 / T_THREADS;  // ... of B
+static_assert(T_A_CHUNKS * 8 * T_THREADS == T_BM * T_BK && T_B_CHUNKS * 8 * T_THREADS == T_BK * T_BN,
+              "the stage splits evenly over the threads");
+
+// The A (rows x k) and B (k x gate columns) sources of one thread, fixed for the whole launch, so
+// that staging a k-tile costs a few adds: loops with compile-time trip counts, no division.
+// kAligned: every row of emb, x1, h_in, w_ih, w_hh starts on 16 bytes and E0, E1, H are multiples
+// of 8, so an 8-element chunk lies inside one source row and one segment of k: 16-byte cp.async
+// copies, zero-filled where out of range.  Otherwise element by element, each guarded.
+struct LstmTcSrc {
+  const int* tokens;
+  const bf16 *emb, *x1, *h_in, *w_ih, *w_hh;
+  int E0, E1, H, B, row0, j0;
+};
+
+template <bool kAligned>
+__device__ __forceinline__ void lstm_tc_load(bf16* stage, int kt, const LstmTcSrc& a,
+                                             const bf16* const (&arow)[T_A_CHUNKS][3], const int (&acol)[T_A_CHUNKS],
+                                             const int (&bcol)[T_B_CHUNKS], const int (&bk)[T_B_CHUNKS]) {
+  bf16* As = stage;
+  bf16* Bs = stage + T_A_ELEMS;
+  const int tid = threadIdx.x;
+  const int In = a.E0 + a.E1, K = In + a.H, G = 4 * a.H, k0 = kt * T_BK;
+  if (kAligned) {
+#pragma unroll
+    for (int i = 0; i < T_A_CHUNKS; ++i) {  // arow: the row's emb / x1 / h_in row, null past B
+      const int k = k0 + acol[i];
+      const bool ok = arow[i][0] != nullptr && k < K;
+      const int e = tid + i * T_THREADS;
+      bf16* dst = As + (e / (T_BK / 8)) * T_APITCH + acol[i];
+      if (ok && k < a.E0)
+        i2l::cp_async_16_l1(dst, arow[i][0] + k, true);
+      else
+        i2l::cp_async_16(dst, !ok ? a.x1 : k < In ? arow[i][1] + (k - a.E0) : arow[i][2] + (k - In), ok);
+    }
+#pragma unroll
+    for (int i = 0; i < T_B_CHUNKS; ++i) {  // bcol: the chunk's gate column, -1 past H
+      const int k = k0 + bk[i];
+      const bool ok = bcol[i] >= 0 && k < K;
+      const bf16* src = !ok ? a.w_hh : (k < In ? a.w_ih + (size_t)k * G : a.w_hh + (size_t)(k - In) * G) + bcol[i];
+      const int e = tid + i * T_THREADS;
+      i2l::cp_async_16(Bs + bk[i] * T_BPITCH + (e % (T_BN / 8)) * 8, src, ok);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16(0.f);
+#pragma unroll 4
+    for (int i = 0; i < T_BM * T_BK / T_THREADS; ++i) {
+      const int e = tid + i * T_THREADS;
+      const int r = e / T_BK, kk = e % T_BK;
+      const int row = a.row0 + r, k = k0 + kk;
+      bf16 v = zero;
+      if (row < a.B && k < K) {
+        if (k < a.E0)
+          v = a.emb[(size_t)a.tokens[row] * a.E0 + k];
+        else if (k < In)
+          v = a.x1[(size_t)row * a.E1 + (k - a.E0)];
+        else
+          v = a.h_in[(size_t)row * a.H + (k - In)];
+      }
+      As[r * T_APITCH + kk] = v;
+    }
+#pragma unroll 4
+    for (int i = 0; i < T_BK * T_BN / T_THREADS; ++i) {
+      const int e = tid + i * T_THREADS;
+      const int kk = e / T_BN, n = e % T_BN;
+      const int g = n / T_HU, j = a.j0 + n % T_HU, k = k0 + kk;
+      bf16 v = zero;
+      if (k < K && j < a.H) v = (k < In ? a.w_ih + (size_t)k * G : a.w_hh + (size_t)(k - In) * G)[g * a.H + j];
+      Bs[kk * T_BPITCH + n] = v;
+    }
+  }
+}
+
+template <bool kAligned>
+__global__ void __launch_bounds__(T_THREADS) lstm_layer_step_tc_kernel(
+    const int* __restrict__ tokens, const bf16* __restrict__ emb, int E0,
+    const bf16* __restrict__ x1, int E1, const bf16* __restrict__ h_in,
+    const bf16* __restrict__ w_ih, const bf16* __restrict__ w_hh, const float* __restrict__ bias,
+    bf16* __restrict__ c, bf16* __restrict__ h_out, int B, int H) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / T_WN, wn = warp % T_WN;  // rows wm * 32 .., units wn * 8 .. of the block tile
+  const int row0 = blockIdx.y * T_BM, j0 = blockIdx.x * T_HU;
+  const int nk = (E0 + E1 + H + T_BK - 1) / T_BK;
+  const LstmTcSrc src{tokens, emb, x1, h_in, w_ih, w_hh, E0, E1, H, B, row0, j0};
+
+  // This thread's chunk sources, once: A rows (the gather of layer 0 read here) and B columns.
+  const bf16* arow[T_A_CHUNKS][3];
+  int acol[T_A_CHUNKS], bcol[T_B_CHUNKS], bk[T_B_CHUNKS];
+#pragma unroll
+  for (int i = 0; i < T_A_CHUNKS; ++i) {
+    const int e = tid + i * T_THREADS, row = row0 + e / (T_BK / 8);
+    acol[i] = (e % (T_BK / 8)) * 8;
+    const bool ok = kAligned && row < B;
+    arow[i][0] = ok ? (E0 > 0 ? emb + (size_t)tokens[row] * E0 : x1) : nullptr;
+    arow[i][1] = ok ? x1 + (size_t)row * E1 : nullptr;
+    arow[i][2] = ok ? h_in + (size_t)row * H : nullptr;
+  }
+#pragma unroll
+  for (int i = 0; i < T_B_CHUNKS; ++i) {
+    const int e = tid + i * T_THREADS, nc = (e % (T_BN / 8)) * 8;
+    const int j = j0 + nc % T_HU;
+    bk[i] = e / (T_BN / 8);
+    bcol[i] = j < H ? (nc / T_HU) * H + j : -1;
+  }
+
+  // [m16 tile][gate][fragment].  The tensor cores sum a stage's T_BK products (their float32
+  // additions truncate); the stages' sums are added here in IEEE float32, so that the whole sum
+  // stays as close to a float32 product's as the CUDA-core kernel's does.
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][g][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < T_STAGES - 1; ++s) {
+    if (s < nk) lstm_tc_load<kAligned>(smem + s * T_STAGE_ELEMS, s, src, arow, acol, bcol, bk);
+    i2l::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    i2l::cp_async_wait<T_STAGES - 2>();  // tile kt has landed (this thread's copies)
+    __syncthreads();                     // ... everyone's; and everyone is done with tile kt - 1
+    const int nxt = kt + T_STAGES - 1;
+    if (nxt < nk) lstm_tc_load<kAligned>(smem + (nxt % T_STAGES) * T_STAGE_ELEMS, nxt, src, arow, acol, bcol, bk);
+    i2l::cp_async_commit();
+    const bf16* As = smem + (kt % T_STAGES) * T_STAGE_ELEMS;
+    const bf16* Bs = As + T_A_ELEMS;
+    float part[2][4][4];  // this stage's sums, from zero
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mi][g][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < T_BK; kk += 16) {
+      uint32_t a[2][4], b[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        i2l::ldmatrix_x4(a[mi], As + (wm * 32 + mi * 16 + lane % 16) * T_APITCH + kk + (lane / 16) * 8);
+#pragma unroll
+      for (int p = 0; p < 2; ++p)  // gates 2p and 2p + 1 of units wn * 8 ..
+        i2l::ldmatrix_x4_trans(
+            b[p], Bs + (kk + lane % 8 + ((lane / 8) % 2) * 8) * T_BPITCH + (2 * p + lane / 16) * T_HU + wn * 8);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          i2l::mma_bf16_16816(part[mi][g], a[mi], b[g / 2][(g % 2) * 2], b[g / 2][(g % 2) * 2 + 1]);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][g][e] += part[mi][g][e];
+  }
+  i2l::cp_async_wait<0>();
+
+  // Cell update, gate order (i, f, g, o); c in place, new h to h_out.
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = row0 + wm * 32 + mi * 16 + lane / 4 + hf * 8;
+      if (row >= B) continue;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = j0 + wn * 8 + (lane % 4) * 2 + u;
+        if (j >= H) continue;
+        const int e = hf * 2 + u;
+        const float gi = acc[mi][0][e] + bias[j];
+        const float gf = acc[mi][1][e] + bias[H + j];
+        const float gg = acc[mi][2][e] + bias[2 * H + j];
+        const float go = acc[mi][3][e] + bias[3 * H + j];
+        const size_t o = (size_t)row * H + j;
+        const float c_new = sigmoidf_(gf) * __bfloat162float(c[o]) + sigmoidf_(gi) * tanhf(gg);
+        const float h_new = sigmoidf_(go) * tanhf(c_new);
+        c[o] = __float2bfloat16(c_new);
+        h_out[o] = __float2bfloat16(h_new);
+      }
     }
   }
 }
@@ -323,6 +574,24 @@ cudaError_t launch_lstm(const void* tokens, const void* emb, int E0, const void*
   return cudaGetLastError();
 }
 
+template <bool kAligned>
+cudaError_t launch_lstm_tc(const void* tokens, const void* emb, int E0, const void* x1, int E1,
+                           const void* h_in, const void* w_ih, const void* w_hh, const void* b,
+                           void* c, void* h_out, int B, int H, cudaStream_t stream) {
+  static bool done[16] = {};
+  const cudaError_t err = i2l::allow_dynamic_smem(lstm_layer_step_tc_kernel<kAligned>, T_SMEM, done);
+  if (err != cudaSuccess) return err;
+  dim3 grid((H + T_HU - 1) / T_HU, (B + T_BM - 1) / T_BM);
+  lstm_layer_step_tc_kernel<kAligned><<<grid, T_THREADS, T_SMEM, stream>>>(
+      static_cast<const int*>(tokens), static_cast<const bf16*>(emb), E0, static_cast<const bf16*>(x1),
+      E1, static_cast<const bf16*>(h_in), static_cast<const bf16*>(w_ih),
+      static_cast<const bf16*>(w_hh), static_cast<const float*>(b), static_cast<bf16*>(c),
+      static_cast<bf16*>(h_out), B, H);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 template <typename T>
 cudaError_t launch_vocab(const void* h, const void* w_out, const void* b_out, void* tokens,
                          void* finished, void* out, void* score, int signal, float alpha, int t,
@@ -349,16 +618,22 @@ extern "C" int i2l_lstm_layer_step(const void* tokens, const void* emb, int E0, 
                                    const void* b, void* c, void* h_out, int B, int H, int dtype,
                                    void* stream) {
   if (B <= 0 || H <= 0 || E1 <= 0 || E0 < 0 || (E0 > 0 && (tokens == nullptr || emb == nullptr)) ||
-      (B + L_BM - 1) / L_BM > 65535)
+      (B + L_BM - 1) / L_BM > 65535 || (B + T_BM - 1) / T_BM > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == i2l::kF32)
     return (int)launch_lstm<float>(tokens, emb, E0, x1, E1, h_in, w_ih, w_hh, b, c, h_out, B, H, s);
-  if (dtype == i2l::kBF16)
-    return (int)launch_lstm<__nv_bfloat16>(tokens, emb, E0, x1, E1, h_in, w_ih, w_hh, b, c, h_out,
-                                           B, H, s);
+  if (dtype == i2l::kBF16) {  // the tensor-core kernel; 16-byte copies where every row allows them
+    const bool aligned = E0 % 8 == 0 && E1 % 8 == 0 && H % 8 == 0 && aligned16(emb) && aligned16(x1) &&
+                         aligned16(h_in) && aligned16(w_ih) && aligned16(w_hh);
+    return (int)(aligned ? launch_lstm_tc<true>(tokens, emb, E0, x1, E1, h_in, w_ih, w_hh, b, c, h_out, B, H, s)
+                         : launch_lstm_tc<false>(tokens, emb, E0, x1, E1, h_in, w_ih, w_hh, b, c, h_out, B, H, s));
+  }
   return (int)cudaErrorInvalidValue;
 }
+
+// Dynamic shared memory of the bf16 lstm_layer_step kernel, bytes (ptxas reports static only).
+extern "C" int i2l_lstm_tc_smem_bytes() { return T_SMEM; }
 
 // Vocab product, argmax and token store for one step.  h (B, H); w_out (H, Vp);
 // b_out (Vp,) float32; tokens (B,) int32 receives the token; finished (B,)

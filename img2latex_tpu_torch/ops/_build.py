@@ -67,6 +67,9 @@ SIGNATURES = {
     "i2l_lstm_seq_bwd_step": [P] * 10 + [I] * 3 + [P],
     # dgx, h0, ys, partial, dw, M, B, H, nsplit, dtype, stream
     "i2l_lstm_seq_dw": [P] * 5 + [I] * 5 + [P],
+    # dynamic shared memory of the bf16 tensor-core kernels, bytes
+    "i2l_lstm_tc_smem_bytes": [],
+    "i2l_conv_tc_smem_bytes": [],
 }
 # Return types other than int (a CUDA error code).
 RESTYPES = {"i2l_beam_step_scratch": ctypes.c_longlong, "i2l_vocab_sample_step_scratch": ctypes.c_longlong}

@@ -36,6 +36,27 @@ from img2latex_tpu_torch.ops import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def conv_taps(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """weight (Cout, Cin, 3, 3) -> the taps ``csrc/conv_pool.cu`` reads for
+    inputs of ``dtype``: the compute-type weights (``kernel.astype(dtype)``)
+    as (Cin, 3, 3, Cout), held in float32 for the float32 kernel; for the
+    bf16 tensor-core kernel in bf16, zero-padded to (Cin16, 3, 3, Cout64)
+    (Cin and Cout rounded up to multiples of 16 and 64), so that every copy of
+    a stage of 16 input channels and a tile of 64 output channels lies inside
+    the array."""
+    taps = weight.to(dtype).permute(1, 2, 3, 0)
+    if dtype == torch.float32:
+        return taps.float().contiguous()
+    Cin, Cout = taps.shape[0], taps.shape[3]
+    out = torch.zeros((_round_up(Cin, 16), 3, 3, _round_up(Cout, 64)), dtype=dtype, device=weight.device)
+    out[:Cin, :, :, :Cout] = taps
+    return out
+
+
 def conv_pool_launch(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
                      layout: str, name: str) -> torch.Tensor:
     """One launch of ``csrc/conv_pool.cu`` on CUDA tensors: x (B, Cin, H, W)
@@ -62,8 +83,7 @@ def conv_pool_launch(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch
         raise ValueError(f"{name}: B {B}, Cin {Cin}, Cout {Cout} out of range")
     if weight.device != x.device or (bias is not None and bias.device != x.device):
         raise ValueError(f"{name}: x, weight and bias must be on one device")
-    # (Cin, 3, 3, Cout): the compute-type weights held in float32 (kernel.astype(dtype))
-    taps = weight.to(x.dtype).float().permute(1, 2, 3, 0).contiguous()
+    taps = conv_taps(weight, x.dtype)
     b = None if bias is None else bias.float().contiguous()
     shape = (B, H // 2, W // 2, Cout) if nhwc else (B, Cout, H // 2, W // 2)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)

@@ -16,7 +16,10 @@ without a backward refusing inputs that require grad; the conv-pool kernel
 of the channel-first chain and of ``fused_conv_relu_pool`` at odd channel
 counts, heights and widths in both layouts, conv1_pool's NHWC output, a
 non-contiguous input refused, a refused launch reported, and
-``convblock_cf``'s backward) at small sizes.
+``convblock_cf``'s backward) at small sizes; and the bf16 tensor-core
+kernels at the main path's widths (``lstm_layer_step`` at B = 512 and 2560
+rows, the conv-pool kernel at the chain blocks' channel counts), with an odd
+H, and with an input 2 bytes past an aligned address.
 Marked ``cuda``: without a CUDA device every test skips.  Imports no JAX, so
 it runs on the card's machine with
 
@@ -82,7 +85,14 @@ def test_conv1_pool_rejects_bad_input(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,E,H,layer0", [(1, 40, 40, True), (70, 24, 40, True), (65, 40, 33, False)])
+@pytest.mark.parametrize("B,E,H,layer0", [
+    (1, 40, 40, True), (70, 24, 40, True), (65, 40, 33, False),
+    # the main path's widths: vector E0 = E1 = H = 512, grid E0 = E1 = 256, H = 384; B = 512 and
+    # 2560 beam rows
+    (512, 512, 512, True), (512, 512, 512, False), (2560, 512, 512, True),
+    (512, 256, 384, True), (2560, 256, 384, False),
+    # H odd: rows of 4H bf16 are not 16-byte multiples (the guarded loader), with the gather
+    (33, 24, 45, True)])
 def test_lstm_layer_step(dev, dtype, B, E, H, layer0):
     rng = np.random.default_rng(B + E + H)
     Vp = 128
@@ -697,8 +707,10 @@ def test_kernels_without_backward_refuse_grad(dev):
 
 # B, Cin, Cout, H, W: odd channel counts, a Cout that is not a multiple of the
 # 64-channel tile, widths and heights that are not multiples of the 4 x 16
-# pooled tile, and Cout above one tile
-CONV_SHAPES = [(5, 3, 12, 8, 12), (5, 33, 12, 8, 12), (2, 1, 70, 6, 34), (1, 8, 130, 4, 66)]
+# pooled tile, and Cout above one tile; then the chain's two blocks' channel
+# counts (32 -> 64, 64 -> 128) on a small canvas
+CONV_SHAPES = [(5, 3, 12, 8, 12), (5, 33, 12, 8, 12), (2, 1, 70, 6, 34), (1, 8, 130, 4, 66),
+               (2, 32, 64, 16, 64), (2, 64, 128, 16, 64)]
 
 
 def _conv_close(got, ref, dtype):
@@ -751,6 +763,25 @@ def test_conv1_pool_nhwc(dev, dtype, shape):
     _conv_close(got, conv1_pool_plain(x, w, b, layout="nhwc"), dtype)
     torch.testing.assert_close(got, conv1_pool(x, w, b, layout="nchw").permute(0, 2, 3, 1), atol=0, rtol=0)
     _conv_close(conv1_lane_relu_pool(x, w), conv1_lane_relu_pool_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+def test_conv_pool_unaligned_input(dev, layout):
+    """A contiguous bf16 input 2 bytes past an aligned address takes the
+    guarded element loader of the tensor-core kernel in both layouts."""
+    B, Cin, Cout, H, W = 2, 16, 64, 8, 34
+    rng = np.random.default_rng(7)
+    flat = _t(rng.normal(size=B * Cin * H * W + 1), dev, torch.bfloat16)
+    shape = (B, Cin, H, W) if layout == "nchw" else (B, H, W, Cin)
+    x = flat[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 4 == 2
+    w = _t(rng.normal(size=(Cout, Cin, 3, 3)) / 12, dev)
+    b = _t(rng.normal(size=Cout) * 0.1, dev)
+    if layout == "nchw":
+        got, ref = fused_convblock_cf(x, w, b), convblock_cf_plain(x, w, b)
+    else:
+        got, ref = fused_conv_relu_pool(x, w), fused_conv_relu_pool_plain(x, w)
+    _conv_close(got, ref, torch.bfloat16)
 
 
 def test_conv_pool_refuses_bad_input(dev):
