@@ -35,13 +35,16 @@ and two broken ``convblock_cf`` that must fail; ``convblock_cf``'s backward,
 a train step on the chain against the plain path, and phase 16's checkpoint
 loaded with ``use_pallas_chain=True``.
 
-The bf16 ``lstm_layer_step`` and conv-pool kernels run on the tensor cores
-(``mma.sync``): the build's SASS must hold HMMA instructions in each of their
-instantiations (where the toolkit has ``cuobjdump``), and phase 3 holds
-``lstm_layer_step`` in bf16 against its plain version at both widths, both
-layers, 512 and 2560 rows and a ragged shape.  Kernels of a few tens of
-microseconds are timed by CUDA-graph replay (device time; ``graph_ms``)
-beside the eager time, which the host's enqueueing bounds.
+The bf16 ``lstm_layer_step``, ``vocab_argmax_step``, attention ``h @ W_h``
+and conv-pool kernels run on the tensor cores (``mma.sync``): the build's
+SASS must hold HMMA instructions in each of their instantiations (where the
+toolkit has ``cuobjdump``); the bf16 vocab kernel must spread the batch over
+clusters of at least 64 blocks and the attention take a block a memory row
+(``check_launch_shapes``); phase 3 holds ``lstm_layer_step`` in bf16 against
+its plain version at both widths, both layers, 512 and 2560 rows and a ragged
+shape.  Every kernel under ~1 ms is timed by CUDA-graph replay (device time;
+``graph_ms``) beside the eager time, which the host's enqueueing bounds, and
+the decodes' device busy share is read under ``torch.profiler``.
 
 Prints its findings on earlier lines, then a ``{"kernels": [...]}`` line,
 the card's name and power limit from nvidia-smi, and last
@@ -53,6 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import functools
 import json
 import os
@@ -260,6 +264,26 @@ def graph_ms(fn, iters: int = 50, reps: int = 5) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
+def both_ms(fn, iters: int = 20):
+    """(device time by CUDA-graph replay, eager time) of one call of ``fn``
+    in ms: the kernels line's ``ms`` / ``plain_ms`` / ``library_ms`` of a row
+    under ~1 ms are the first (``ms_method: cuda_graph``), ``ms_eager`` the
+    kernel's second."""
+    return graph_ms(fn), time_ms(fn, iters=iters, warmup=2)
+
+
+# Issue rate of the H100's CUDA cores, lane-instructions a second (132 SMs x 4
+# schedulers x 32 lanes at the 1.755 GHz boost clock), and the instructions of
+# one attention energy, round(round(tanh(round(x + hw))) v) added to a score:
+# tanhf (two MUFU, ~15 other instructions), the three roundings and their
+# unpacking, the add, the product and the sum (estimated from the bf16
+# kernel's SASS).  Their product is the attention's compute floor beside its byte
+# bound; it is an estimate, not a peak rate, so the kernels line keeps the
+# byte bound.
+LANE_INSTR_PER_S = 132 * 4 * 32 * 1.755e9
+ENERGY_INSTR = 24
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -322,7 +346,8 @@ def card_line() -> str:
 
 # The bf16 kernels redesigned for the tensor cores: each instantiation's SASS
 # must hold HMMA (mma.sync) or HGMMA (wgmma) instructions.
-TENSOR_CORE_KERNELS = ("lstm_layer_step_tc_kernel", "conv_pool_tc_kernel")
+TENSOR_CORE_KERNELS = ("lstm_layer_step_tc_kernel", "conv_pool_tc_kernel", "vocab_argmax_step_tc_kernel",
+                       "attend_hw_tc_kernel")
 
 
 def sass_mma_counts(lib_path):
@@ -354,8 +379,10 @@ def check_tensor_core_build(lib_path) -> None:
     are among the ptxas lines that main logs."""
     from img2latex_tpu_torch.ops import _build
 
+    dims = (ctypes.c_int * 3)()
     log(f"dynamic shared memory a block: lstm_layer_step_tc_kernel {_build.lib().i2l_lstm_tc_smem_bytes()} bytes, "
-        f"conv_pool_tc_kernel {_build.lib().i2l_conv_tc_smem_bytes()} bytes")
+        f"conv_pool_tc_kernel {_build.lib().i2l_conv_tc_smem_bytes()} bytes, vocab_argmax_step_tc_kernel "
+        f"{_build.lib().i2l_vocab_tc_launch_shape(BATCH, 512, dims)} bytes")
     counts = sass_mma_counts(lib_path)
     if counts is None:
         log("cuobjdump not found: tensor-core instruction counts not measured")
@@ -365,6 +392,28 @@ def check_tensor_core_build(lib_path) -> None:
         log(f"SASS HMMA/HGMMA counts of {k}: {json.dumps(found)}")
         check(len(found) > 0, f"{k} is not in the library's SASS")
         check(all(n > 0 for n in found.values()), f"{k}: an instantiation runs no tensor-core instruction")
+
+
+def check_launch_shapes() -> None:
+    """The redesigned kernels' launches at the main path's shapes, from the
+    library: the bf16 vocab kernel spreads B = 512 rows over at least 64
+    blocks in clusters (one 64-column slice a block), and the attention takes
+    one block a memory row, for 512 rows and for 512 x BEAM beam rows alike."""
+    from img2latex_tpu_torch.ops import _build
+
+    dims = (ctypes.c_int * 3)()
+    lib = _build.lib()
+    lib.i2l_vocab_tc_launch_shape(BATCH, 512, dims)
+    gx, gy, cl = tuple(dims)
+    log(f"vocab_argmax_step_tc_kernel at B={BATCH}, Vp=512: grid ({gx}, {gy}) = {gx * gy} blocks, "
+        f"clusters of {cl} along the columns")
+    check(gx * gy >= 64 and cl > 1, "vocab_argmax_step: the bf16 launch is not split over clusters of >= 64 blocks")
+    for rows, k in ((BATCH, 1), (BATCH * BEAM, BEAM)):
+        smem = lib.i2l_attend_launch_shape(rows, GRID_S, GRID_EMBED, GRID_HIDDEN, k, 1, dims)
+        blocks, group, tile = tuple(dims)
+        log(f"attend_mem_kernel at {rows} rows, rows_per_mem={k}: {blocks} blocks (one a memory row), groups of "
+            f"{group} rows, memory tiles of {tile} of {GRID_S} slots, {smem} bytes of shared memory a block")
+        check(blocks == BATCH and group == min(k, 8), f"attend_step rows_per_mem={k}: not a block a memory row")
 
 
 def log_profile(what: str, card: str, fn) -> None:
@@ -383,7 +432,8 @@ def log_profile(what: str, card: str, fn) -> None:
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0) or 0
         if t > 0:
-            key = next((k for k in ("attend_hw_kernel", "attend_kernel", "lstm_layer_step_tc_kernel", "lstm_layer_step_kernel",
+            key = next((k for k in ("attend_hw_tc_kernel", "attend_hw_kernel", "attend_mem_kernel",
+                                    "lstm_layer_step_tc_kernel", "lstm_layer_step_kernel", "vocab_argmax_step_tc_kernel",
                                     "vocab_argmax_step_kernel", "beam_step_kernel", "vocab_sample_step_kernel")
                         if k in e.key), "other")
             ms, n = by_kernel.get(key, (0.0, 0))
@@ -391,10 +441,44 @@ def log_profile(what: str, card: str, fn) -> None:
     busy = sum(ms for ms, _ in by_kernel.values())
     if busy > 0:
         log(f"{what} under torch.profiler: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
-            f"({100 * busy / wall_ms:.1f}%), device idle (host) {wall_ms - busy:.2f} ms; by kernel (ms, launches): "
-            f"{json.dumps({k: [round(ms, 4), n] for k, (ms, n) in by_kernel.items()})} [{card}]")
+            f"({100 * busy / wall_ms:.1f}%), device idle (host) {wall_ms - busy:.2f} ms; by kernel (ms, launches, "
+            f"% of the busy time): {json.dumps({k: [round(ms, 4), n, round(100 * ms / busy, 1)] for k, (ms, n) in by_kernel.items()})} "
+            f"[{card}]")
     else:
         log(f"{what} under torch.profiler: no device time seen (not measured)")
+
+
+def time_vocab_step(dev, card: str, h, packed, H: int, width: str) -> dict:
+    """vocab_argmax_step in bf16 at B = BATCH (h from the decode's layers):
+    device time by CUDA-graph replay and eager, with and without a score
+    signal, its plain version's, and the yardstick ``addmm + argmax`` (two
+    PyTorch calls, b_out in bf16, so not the row's library call); bound.
+    Returns the kernels-line fields."""
+    import torch
+
+    from img2latex_tpu_torch.ops.decode_step import vocab_argmax_step, vocab_argmax_step_plain
+
+    Vp = packed["vocab_padded"]
+    B = h.shape[0]
+    tok = torch.zeros((B,), dtype=torch.int32, device=dev)
+    fin = torch.zeros((B,), dtype=torch.int32, device=dev)
+    out = torch.zeros((B, MAX_LEN), dtype=torch.int32, device=dev)
+    score = torch.zeros((B,), dtype=torch.float32, device=dev)
+
+    def call(step, **kw):
+        return lambda: step(h, packed["w_out"], packed["b_out"], tok, fin, out, 0, END_ID, 0, **kw)
+
+    ms_k, ms_ke = both_ms(call(vocab_argmax_step))
+    ms_s, _ = both_ms(call(vocab_argmax_step, score=score, signal="margin_logp:0.5"))
+    ms_p, ms_pe = both_ms(call(vocab_argmax_step_plain))
+    b16 = packed["b_out"].to(torch.bfloat16)
+    ms_y, ms_ye = both_ms(lambda: torch.addmm(b16, h, packed["w_out"]).argmax(-1))
+    # h, W_out and b_out read, finished read and written, tokens and the out column written
+    bnd, by = bound_ms(B * H * 2 + H * Vp * 2 + Vp * 4 + B * 4 * 4, 2 * B * H * Vp, "bfloat16")
+    log(f"vocab_argmax_step {width} bf16 B={B} H={H} Vp={Vp}: kernel {ms_k:.4f} ms (device, CUDA graph; eager "
+        f"{ms_ke:.4f}; with a score signal {ms_s:.4f}), plain {ms_p:.4f} ms (eager {ms_pe:.4f}), yardstick "
+        f"addmm + argmax {ms_y:.4f} ms (eager {ms_ye:.4f}), bound {bnd:.4f} ms ({by}) [{card}]")
+    return dict(ms=ms_k, ms_eager=ms_ke, plain_ms=ms_p, bound_ms=bnd, bound_by=by)
 
 
 # lstm_layer_step in bf16 (the tensor-core kernel) against its plain version at
@@ -487,19 +571,23 @@ def phase_attend(dev, rng, card: str, kernels: dict) -> None:
         f"(tol {ATTEND_BF16_RTOL:.4g} |ref| + {ATTEND_F32_ATOL})")
     ctx = torch.empty((B, E), device=dev, dtype=torch.bfloat16)
     hw = torch.empty((B, A), device=dev, dtype=torch.bfloat16)
-    ms_k = time_ms(lambda: attend_step(*args, ctx, hw), iters=50, warmup=5)
-    ms_p = time_ms(lambda: attend_step_plain(*args, ctx), iters=20)
+    ms_k, ms_ke = both_ms(lambda: attend_step(*args, ctx, hw), iters=50)
+    ms_p, ms_pe = both_ms(lambda: attend_step_plain(*args, ctx))
     log_profile(f"20 attend_step launches (B={B}, bf16)", card,
                 lambda: [attend_step(*args, ctx, hw) for _ in range(20)])
     nbytes = 2 * (B * S * (A + E) + B * H + H * A + A + B * E)
     flops = 2 * B * H * A + 2 * B * S * A + 2 * B * S * E
     bnd, by = bound_ms(nbytes, flops, "bfloat16")
-    log(f"attend_step bf16 B={B}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bnd:.4f} ms ({by}); "
-        f"no single PyTorch call computes additive attention [{card}]")
+    tanh_ms = B * S * A * ENERGY_INSTR / LANE_INSTR_PER_S * 1e3
+    log(f"attend_step bf16 B={B}: kernel {ms_k:.4f} ms (device, CUDA graph; eager {ms_ke:.4f}), plain {ms_p:.4f} ms "
+        f"(eager {ms_pe:.4f}), bound {bnd:.4f} ms ({by}); energies' compute floor {tanh_ms:.4f} ms "
+        f"({B * S * A / 1e6:.1f} M x ~{ENERGY_INSTR} instructions); no single PyTorch call computes additive "
+        f"attention [{card}]")
     kernels["attend_step"] = dict(
         name="attend_step", route="cuda", source="img2latex_tpu_torch/csrc/grid_attend.cu",
         replaces="img2latex_tpu/ops/pallas/grid_decode.py:373", max_abs_err=errs["float32"],
-        ms=ms_k, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=None)
+        max_abs_err_bf16=errs["bfloat16"], ms=ms_k, ms_eager=ms_ke, plain_ms=ms_p, bound_ms=bnd, bound_by=by,
+        library_ms=None, ms_method="cuda_graph")
 
 
 def grid_config():
@@ -725,11 +813,11 @@ def phase_grid_end_to_end(dev, card, gcfg, gmodel, tokenizer, images, kernels) -
         step(tok, packed["emb"], ctx, hh[0], packed["w_ih_0"], packed["w_hh_0"], packed["b_0"], cc[0], hh[1])
         step(None, None, hh[1], hh[2], packed["w_ih_1"], packed["w_hh_1"], packed["b_1"], cc[1], hh[0])
 
-    ms_l = time_ms(lambda: layers(lstm_layer_step), iters=20) / LAYERS
-    ms_lp = time_ms(lambda: layers(lstm_layer_step_plain), iters=20) / LAYERS
-    ms_v = time_ms(lambda: vocab_argmax_step(hh[0], packed["w_out"], packed["b_out"], tok, fin, out, 0, 2, 0), iters=20)
-    ms_vp = time_ms(lambda: vocab_argmax_step_plain(hh[0], packed["w_out"], packed["b_out"], tok, fin, out, 0, 2, 0),
-                    iters=20)
+    ms_l = graph_ms(lambda: layers(lstm_layer_step)) / LAYERS
+    ms_lp = graph_ms(lambda: layers(lstm_layer_step_plain)) / LAYERS
+    layers(lstm_layer_step)  # hh[0]: a decode step's top-layer h
+    vocab = time_vocab_step(dev, card, hh[0], packed, GRID_HIDDEN, "grid")
+    ms_v, ms_vp = vocab["ms"], vocab["plain_ms"]
     ms_a = kernels["attend_step"]["ms"]
     # one decode under torch.profiler: device time by kernel, and the busy share
     log_profile(f"grid decode (B={BATCH}, bf16)", card,
@@ -831,19 +919,23 @@ def phase_beam_step(dev, rng, card: str, kernels: dict) -> None:
         op = _beam_step_operands(dev, rng, B, K, H, Vp, torch.bfloat16)
         out_k = _beam_step_run(beam_step, op, K)
         out_p = _beam_step_run(beam_step_plain, op, K)
-        ms_k = time_ms(lambda: _beam_step_run(beam_step, op, K, out_k), iters=50, warmup=5)
+        ms_k, ms_ke = both_ms(lambda: _beam_step_run(beam_step, op, K, out_k), iters=50)
+        # the plain version fills a row from the host (pad_row[pad_id] = 0.0), which a CUDA graph
+        # cannot capture: its time stays eager (plain_ms_method)
         ms_p = time_ms(lambda: _beam_step_run(beam_step_plain, op, K, out_p), iters=20)
         nbytes = (N * H * 2 + H * Vp * 2 + Vp * 4 + N * 4 * 2 * 2 + N * 4 * 3
                   + 2 * LAYERS * N * H * 2 * 2)  # h, W_out, b_out, scores and finished r/w, tokens + history, carries r/w
         flops = 2 * N * H * Vp
         bnd, by = bound_ms(nbytes, flops, "bfloat16")
-        log(f"beam_step {width} bf16 B={B} K={K} H={H} Vp={Vp}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+        log(f"beam_step {width} bf16 B={B} K={K} H={H} Vp={Vp}: kernel {ms_k:.4f} ms (device, CUDA graph; eager "
+            f"{ms_ke:.4f}), plain {ms_p:.4f} ms (eager), "
             f"bound {bnd:.4f} ms ({by}); no single PyTorch call computes log-softmax + per-sample K*V top-K "
             f"+ carry gather [{card}]")
     kernels["beam_step"] = dict(
         name="beam_step", route="cuda", source="img2latex_tpu_torch/csrc/beam_step.cu",
         replaces="img2latex_tpu/ops/pallas/beam_decode.py:335", max_abs_err=errs[("grid", "float32", False, BEAM)],
-        ms=ms_k, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=None)
+        ms=ms_k, ms_eager=ms_ke, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=None, ms_method="cuda_graph",
+        plain_ms_method="eager")
 
 
 def phase_attend_shared(dev, rng, card: str, kernels: dict) -> None:
@@ -880,19 +972,22 @@ def phase_attend_shared(dev, rng, card: str, kernels: dict) -> None:
         f"(tol {ATTEND_BF16_RTOL:.4g} |ref| + {ATTEND_F32_ATOL})")
     ctx = torch.empty((N, E), device=dev, dtype=torch.bfloat16)
     hw = torch.empty((N, A), device=dev, dtype=torch.bfloat16)
-    ms_k = time_ms(lambda: attend_step(*args, ctx, hw, rows_per_mem=K), iters=50, warmup=5)
-    ms_p = time_ms(lambda: attend_step_plain(*args, ctx, rows_per_mem=K), iters=10)
+    ms_k, ms_ke = both_ms(lambda: attend_step(*args, ctx, hw, rows_per_mem=K), iters=50)
+    ms_p, ms_pe = both_ms(lambda: attend_step_plain(*args, ctx, rows_per_mem=K), iters=10)
     # the memory and U once (not K times), h, W_h, v and ctx
     nbytes = 2 * (B * S * (A + E) + N * H + H * A + A + N * E)
     flops = 2 * N * H * A + 2 * N * S * A + 2 * N * S * E
     bnd, by = bound_ms(nbytes, flops, "bfloat16")
-    log(f"attend_step[rows_per_mem={K}] bf16: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bnd:.4f} ms "
-        f"({by}); the kernel asks for {K * 2 * B * S * (A + E) / 1e6:.1f} MB of U and memory a step (each row "
-        f"its own block), the bound counts {2 * B * S * (A + E) / 1e6:.1f} MB [{card}]")
+    tanh_ms = N * S * A * ENERGY_INSTR / LANE_INSTR_PER_S * 1e3
+    log(f"attend_step[rows_per_mem={K}] bf16: kernel {ms_k:.4f} ms (device, CUDA graph; eager {ms_ke:.4f}), plain "
+        f"{ms_p:.4f} ms (eager {ms_pe:.4f}), bound {bnd:.4f} ms ({by}); energies' compute floor {tanh_ms:.4f} ms "
+        f"({N * S * A / 1e6:.1f} M x ~{ENERGY_INSTR} instructions); a block a memory row reads its "
+        f"{2 * B * S * (A + E) / 1e6:.1f} MB of U and memory once a step for its {K} rows [{card}]")
     kernels[f"attend_step[rows_per_mem={K}]"] = dict(
         name=f"attend_step[rows_per_mem={K}]", route="cuda", source="img2latex_tpu_torch/csrc/grid_attend.cu",
         replaces="img2latex_tpu/ops/pallas/grid_decode.py:561", max_abs_err=errs["float32"],
-        ms=ms_k, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=None)
+        max_abs_err_bf16=errs["bfloat16"], ms=ms_k, ms_eager=ms_ke, plain_ms=ms_p, bound_ms=bnd, bound_by=by,
+        library_ms=None, ms_method="cuda_graph")
 
 
 def compare_beams(got, ref, got_trace, ref_trace, dtype: str, logp_tol: float):
@@ -1317,8 +1412,10 @@ def phase_sample_step(dev, rng, card: str, kernels: dict) -> None:
         op = dict(op0, w_out=folded["w_out"], b_out=folded["b_out"])
         kw = dict(top_k=SAMPLE["top_k"], top_p=SAMPLE["top_p"], seed=SAMPLE_SEED)
         out_k, out_p = _sample_step_run(vocab_sample_step, op, **kw), _sample_step_run(vocab_sample_step_plain, op, **kw)
-        ms_k = time_ms(lambda: _sample_step_run(vocab_sample_step, op, out=out_k, **kw), iters=50, warmup=5)
-        ms_p = time_ms(lambda: _sample_step_run(vocab_sample_step_plain, op, out=out_p, **kw), iters=10)
+        ms_k, ms_ke = both_ms(lambda: _sample_step_run(vocab_sample_step, op, out=out_k, **kw), iters=50)
+        # the plain version's random stream makes host-to-device copies (uniform_field's constants),
+        # which a CUDA graph cannot capture: its time stays eager (plain_ms_method)
+        ms_p = ms_pe = time_ms(lambda: _sample_step_run(vocab_sample_step_plain, op, out=out_p, **kw), iters=10)
         ms_each = {json.dumps(st): time_ms(lambda st=st: _sample_step_run(
             vocab_sample_step, op, out=out_k, seed=SAMPLE_SEED, top_k=st.get("top_k", 0), top_p=st.get("top_p", 0.0)),
             iters=20, warmup=2) for st in SAMPLE_SETTINGS}
@@ -1326,13 +1423,15 @@ def phase_sample_step(dev, rng, card: str, kernels: dict) -> None:
         nbytes = B * H * 2 + H * Vp * 2 + Vp * 4 + B * 4 * 4
         flops = 2 * B * H * Vp
         bnd, by = bound_ms(nbytes, flops, "bfloat16")
-        log(f"vocab_sample_step {width} bf16 B={B} H={H} Vp={Vp} {json.dumps(SAMPLE)}: kernel {ms_k:.4f} ms, "
-            f"plain {ms_p:.4f} ms, bound {bnd:.4f} ms ({by}); each setting (ms): {json.dumps(ms_each)}; "
+        log(f"vocab_sample_step {width} bf16 B={B} H={H} Vp={Vp} {json.dumps(SAMPLE)}: kernel {ms_k:.4f} ms (device, "
+            f"CUDA graph; eager {ms_ke:.4f}), plain {ms_p:.4f} ms (eager), bound {bnd:.4f} ms ({by}); each "
+            f"setting (ms, eager): {json.dumps(ms_each)}; "
             f"no single PyTorch call applies top-k, renormalization, top-p and the draw [{card}]")
     kernels["vocab_sample_step"] = dict(
         name="vocab_sample_step", route="cuda", source="img2latex_tpu_torch/csrc/sample_step.cu",
         replaces="img2latex_tpu/ops/pallas/grid_decode.py:665", max_abs_err=worst,
-        ms=ms_k, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=None)
+        ms=ms_k, ms_eager=ms_ke, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=None, ms_method="cuda_graph",
+        plain_ms_method="eager")
 
 
 def phase_sample_draws(dev, rng) -> None:
@@ -2519,6 +2618,7 @@ def main() -> int:
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 log("  ptxas: " + line.split("ptxas info    : ")[-1].strip())
     check_tensor_core_build(_build.library_path())
+    check_launch_shapes()
 
     # ---- phase 2: kernel 1, conv1 + bias + ReLU + pool ---------------------
     u8 = rng.integers(0, 256, size=(64, IMG_H, IMG_W, 1), dtype=np.uint8)
@@ -2549,26 +2649,27 @@ def main() -> int:
         dtype=torch.bfloat16)
     xb_nchw = xb.permute(0, 3, 1, 2).contiguous()
     w1b, b1b = w1.to(torch.bfloat16), b1.to(torch.bfloat16)
-    ms_k = time_ms(lambda: conv1_pool(xb, w1, b1))
-    ms_p = time_ms(lambda: conv1_pool_plain(xb, w1, b1))
-    ms_l = time_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xb_nchw, w1b, b1b, padding=1)), 2))
+    ms_k, ms_ke = both_ms(lambda: conv1_pool(xb, w1, b1), iters=10)
+    ms_p, _ = both_ms(lambda: conv1_pool_plain(xb, w1, b1), iters=10)
+    ms_l, _ = both_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xb_nchw, w1b, b1b, padding=1)), 2), iters=10)
     nbytes = xb.numel() * 2 + BATCH * FILTERS[0] * (IMG_H // 2) * (IMG_W // 2) * 2 + w1.numel() * 4 + b1.numel() * 4
     flops = 2 * 9 * FILTERS[0] * BATCH * IMG_H * IMG_W
     bnd, by = bound_ms(nbytes, flops, "bfloat16")
-    log(f"conv1_pool ({BATCH},{IMG_H},{IMG_W},1) bf16: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+    log(f"conv1_pool ({BATCH},{IMG_H},{IMG_W},1) bf16: kernel {ms_k:.4f} ms (device, CUDA graph; eager {ms_ke:.4f}), "
+        f"plain {ms_p:.4f} ms, "
         f"conv2d+relu+max_pool2d {ms_l:.4f} ms, bound {bnd:.4f} ms ({by}) [{card}]")
     kernels["conv1_pool"] = dict(
         name="conv1_pool", route="cuda", source="img2latex_tpu_torch/csrc/conv1_pool.cu",
         replaces="img2latex_tpu/ops/pallas/conv1_phase.py:208", max_abs_err=err32,
-        ms=ms_k, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=ms_l)
+        ms=ms_k, ms_eager=ms_ke, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=ms_l, ms_method="cuda_graph")
     # conv1_lane.py::conv1_lane_relu_pool is the same op without the bias: the
     # same kernel with a zero bias
     z1 = torch.zeros_like(b1)
     err0 = (conv1_pool(x32, w1, z1) - conv1_pool_plain(x32, w1, z1)).abs().max().item()
     check(err0 <= CONV_F32_ATOL, f"conv1 zero bias f32 max abs err {err0} > {CONV_F32_ATOL}")
-    ms_k0 = time_ms(lambda: conv1_pool(xb, w1, z1))
-    ms_p0 = time_ms(lambda: conv1_pool_plain(xb, w1, z1))
-    ms_l0 = time_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xb_nchw, w1b, None, padding=1)), 2))
+    ms_k0, ms_k0e = both_ms(lambda: conv1_pool(xb, w1, z1), iters=10)
+    ms_p0, _ = both_ms(lambda: conv1_pool_plain(xb, w1, z1), iters=10)
+    ms_l0, _ = both_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xb_nchw, w1b, None, padding=1)), 2), iters=10)
     bnd0, by0 = bound_ms(nbytes - b1.numel() * 4, flops, "bfloat16")
     log(f"conv1_pool, zero bias (conv1_lane_relu_pool): f32 max abs err {err0:.3g}; bf16 ({BATCH},{IMG_H},{IMG_W},1): "
         f"kernel {ms_k0:.4f} ms, plain {ms_p0:.4f} ms, conv2d+relu+max_pool2d {ms_l0:.4f} ms, "
@@ -2576,7 +2677,8 @@ def main() -> int:
     kernels["conv1_pool[bias=0]"] = dict(
         name="conv1_pool[bias=0]", route="cuda", source="img2latex_tpu_torch/csrc/conv1_pool.cu",
         replaces="img2latex_tpu/ops/pallas/conv1_lane.py:96", max_abs_err=err0,
-        ms=ms_k0, plain_ms=ms_p0, bound_ms=bnd0, bound_by=by0, library_ms=ms_l0)
+        ms=ms_k0, ms_eager=ms_k0e, plain_ms=ms_p0, bound_ms=bnd0, bound_by=by0, library_ms=ms_l0,
+        ms_method="cuda_graph")
 
     # ---- phase 3: kernel 2, the greedy decode kernels ----------------------
     cfg = Config()
@@ -2651,18 +2753,15 @@ def main() -> int:
     lb += 2 * HIDDEN * H4 * 2 + H4 * 4 + BATCH * HIDDEN * 2 + BATCH * HIDDEN * 2 * 4
     lf = 2 * BATCH * (2 * EMBED + HIDDEN) * H4 + 2 * BATCH * 2 * HIDDEN * H4
     bnd_l, by_l = bound_ms(lb / LAYERS, lf / LAYERS, "bfloat16")
-    ms_vk = time_ms(lambda: vocab_argmax_step(hh[0], packed["w_out"], packed["b_out"], tok, fin, out, 0, 2, 0), iters=20)
-    ms_vp = time_ms(lambda: vocab_argmax_step_plain(hh[0], packed["w_out"], packed["b_out"], tok, fin, out, 0, 2, 0), iters=20)
-    bnd_v, by_v = bound_ms(BATCH * HIDDEN * 2 + HIDDEN * Vp * 2 + Vp * 4 + BATCH * 4 * 4,
-                           2 * BATCH * HIDDEN * Vp, "bfloat16")
+    vocab = time_vocab_step(dev, card, hh[0], packed, HIDDEN, "vector")
     ms_dk = time_ms(lambda: greedy_decode(packed, ctxb, MAX_LEN, 1, END_ID, 0), iters=3, warmup=1)
     ms_dp = time_ms(lambda: greedy_decode_plain(packed, ctxb, MAX_LEN, 1, END_ID, 0), iters=3, warmup=1)
+    log_profile(f"vector greedy decode (B={BATCH}, bf16)", card,
+                lambda: greedy_decode(packed, ctxb, MAX_LEN, 1, END_ID, 0))
     log(f"lstm_layer_step bf16 B={BATCH} (mean of layers 0 and 1), device time (CUDA graph): kernel {ms_lk:.4f} ms, "
         f"plain {ms_lp:.4f} ms, nn.LSTMCell (layer 0, no gather) {ms_ll:.4f} ms, bound {bnd_l:.4f} ms ({by_l}); "
         f"enqueued eagerly: kernel {ms_lk_e:.4f} ms, plain {ms_lp_e:.4f} ms, nn.LSTMCell {ms_ll_e:.4f} ms [{card}]")
     step_shapes = phase_lstm_step_shapes(dev, card)
-    log(f"vocab_argmax_step bf16 B={BATCH}: kernel {ms_vk:.4f} ms, plain {ms_vp:.4f} ms, "
-        f"bound {bnd_v:.4f} ms ({by_v}) [{card}]")
     log(f"greedy_decode bf16 B={BATCH} T={MAX_LEN}: kernels {ms_dk:.3f} ms, plain {ms_dp:.3f} ms [{card}]")
     src = "img2latex_tpu_torch/csrc/greedy_decode.cu"
     rep = "img2latex_tpu/ops/pallas/decode_step.py:523"
@@ -2672,10 +2771,11 @@ def main() -> int:
         name="lstm_layer_step", route="cuda", source=src, replaces=rep, max_abs_err=step_errs["float32"][0],
         max_abs_err_bf16=max(e for k, (_, e) in step_shapes.items()
                              if k.startswith("vector") and k.endswith(f"rows={BATCH}")),
-        ms=ms_lk, plain_ms=ms_lp, bound_ms=bnd_l, bound_by=by_l, library_ms=ms_ll, ms_method="cuda_graph")
+        ms=ms_lk, ms_eager=ms_lk_e, plain_ms=ms_lp, bound_ms=bnd_l, bound_by=by_l, library_ms=ms_ll,
+        ms_method="cuda_graph")
     kernels["vocab_argmax_step"] = dict(
         name="vocab_argmax_step", route="cuda", source=src, replaces=rep, max_abs_err=step_errs["float32"][1],
-        ms=ms_vk, plain_ms=ms_vp, bound_ms=bnd_v, bound_by=by_v, library_ms=None)
+        max_abs_err_bf16=step_errs["bfloat16"][1], library_ms=None, ms_method="cuda_graph", **vocab)
 
     # ---- phase 4: the main path end to end ---------------------------------
     tokenizer = LaTeXTokenizer(max_sequence_length=MAX_LEN)
@@ -2797,14 +2897,19 @@ def main() -> int:
              "lstm_seq_bwd", "conv1_pool_bwd", "convblock_cf", "convblock_cf_bwd", "fused_conv_relu_pool",
              "conv1_pool[nhwc]")
     # max_abs_err is the float32 instantiation's; max_abs_err_bf16 that of a
-    # bf16 kernel which is not the float32 one (the tensor-core kernels), else
-    # null.  ms_method: "eager" (CUDA events around calls the host enqueues)
-    # or "cuda_graph" (device time, graph_ms); the row's three times share it.
+    # bf16 kernel which is not the float32 one (the tensor-core kernels, the
+    # bf16 attention), else null.  ms_method: "eager" (CUDA events around
+    # calls the host enqueues) or "cuda_graph" (device time, graph_ms; every
+    # row under ~1 ms); the row's three times share it, except where
+    # plain_ms_method says otherwise.  ms_eager: the kernel's eager time
+    # beside its device time.
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "max_abs_err_bf16", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_method")
+            "ms_eager", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_method", "plain_ms_method")
     for n in order:
         kernels[n].setdefault("max_abs_err_bf16", None)
         kernels[n].setdefault("ms_method", "eager")
+        kernels[n].setdefault("ms_eager", kernels[n]["ms"])
+        kernels[n].setdefault("plain_ms_method", kernels[n]["ms_method"])
     print(json.dumps({"kernels": [{k: kernels[n][k] for k in keys} for n in order]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,9 @@
 //                     (lowest index wins ties), the PAD-after-END rule, the
 //                     token store and, when asked, the step's confidence
 //                     signal (decode_step.py:327-372) added to a per-row
-//                     score; logits never reach device memory.
+//                     score; logits never reach device memory.  Rounding
+//                     points: decode_step.py:325's (compute-type operands,
+//                     float32 sums, float32 bias and logits).
 //
 // Bound of lstm_layer_step: 2 B K 4H FLOP (K = E0 + E1 + H) on K 4H weights
 // that all rows share.  At the vector width (B = 512, H = 512, K = 1536 and
@@ -75,16 +77,37 @@
 //     ptxas (sm_90a, CUDA 12.8): 128 registers (aligned loader) and 114
 //     (guarded), no spills; the first build, one 32-deep 4-stage ring summed
 //     in the tensor cores alone, 93 and 80.
-// vocab_argmax_step is a register-tiled float32 product over shared-memory
-// tiles, 256 threads a block: a block takes 16 rows and walks all Vp columns
-// in chunks of 128, each thread keeping a running (max, index) of its row;
-// the 16 threads of a row then reduce with warp shuffles.  For a score a
-// thread also keeps the runner-up (the largest logit outside the chosen
-// column, a tie giving margin 0, as masking the argmax column does) and an
-// online sum of exp(l - max) and of exp(l - max) (l - max) for the logsumexp
-// and the entropy.
+// Bound of vocab_argmax_step: h (B x H) and W_out (H x Vp) read once, 2 B H Vp
+// FLOP: at B = 512, H = 512, Vp = 512 about 1 MB and 0.27 GFLOP, 0.32 us
+// over device memory; in practice a launch is bound by its latency chain
+// (loads from L2, the product, the merges).  Two kernels, by storage type:
+//   float32: vocab_argmax_step_kernel, a register-tiled float32 product on
+//     the CUDA cores (exact, the oracle): a block takes 16 rows and walks all
+//     Vp columns in chunks of 128, each thread keeping a running state of its
+//     row over its columns; the 16 threads of a row then reduce with warp
+//     shuffles.
+//   bf16: vocab_argmax_step_tc_kernel, tensor cores and clusters.  A block
+//     takes 32 rows x a 64-column slice (tile_mma.cuh: mma.sync m16n8k16 on
+//     bf16 h and W_out staged by cp.async, float32 sums, each 64-deep stage
+//     summed from zero and added in IEEE float32); the Vp / 64 slices of a
+//     row tile are the blocks of one thread-block cluster (8 at Vp = 512, so
+//     B = 512 gives 128 blocks where the float32 kernel has 32), more slices
+//     than 8 are walked by each block in turn.  The epilogue adds b_out and
+//     builds each row's state over the block's columns in registers and
+//     shared memory; the cluster merges the blocks' states through
+//     distributed shared memory (stat_combine: the lowest index wins a tie
+//     across slices) and applies the END rule and the score signal.
+// A row's state (RowStat): the best logit and its index, the runner-up (the
+// largest logit outside the chosen column, a tie giving margin 0, as masking
+// the argmax column does) and online sums of exp(l - max) and of
+// exp(l - max) (l - max) for the logsumexp and the entropy.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "mma_bf16.cuh"
+#include "tile_mma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -437,37 +460,47 @@ __device__ __forceinline__ void stat_push(RowStat& st, float v, int col) {
   }
 }
 
-// Merge the state of the lane `off` away (same half warp).  Without kScore
-// only (best, idx) are kept.
+// Merge another state of the same row into st: the larger best wins, the
+// lower index on a tie, whatever the order the two states come in.  Without
+// kScore only (best, idx) are kept.
 template <bool kScore>
-__device__ __forceinline__ void stat_merge(RowStat& st, int off) {
-  const float o_best = __shfl_xor_sync(0xffffffffu, st.best, off);
-  const int o_idx = __shfl_xor_sync(0xffffffffu, st.idx, off);
-  const bool other_wins = o_best > st.best || (o_best == st.best && o_idx < st.idx);
+__device__ __forceinline__ void stat_combine(RowStat& st, const RowStat& o) {
+  const bool other_wins = o.best > st.best || (o.best == st.best && o.idx < st.idx);
   if (kScore) {
-    const float o_second = __shfl_xor_sync(0xffffffffu, st.second, off);
-    const float o_z = __shfl_xor_sync(0xffffffffu, st.z, off);
-    const float o_q = __shfl_xor_sync(0xffffffffu, st.q, off);
-    const float m = other_wins ? o_best : st.best;
+    const float m = other_wins ? o.best : st.best;
     float z = 0.f, q = 0.f;
     if (st.z > 0.f) {
       const float d = st.best - m, a = expf(d);
       z += a * st.z;
       q += a * (st.q + d * st.z);
     }
-    if (o_z > 0.f) {
-      const float d = o_best - m, a = expf(d);
-      z += a * o_z;
-      q += a * (o_q + d * o_z);
+    if (o.z > 0.f) {
+      const float d = o.best - m, a = expf(d);
+      z += a * o.z;
+      q += a * (o.q + d * o.z);
     }
     st.z = z;
     st.q = q;
-    st.second = fmaxf(fmaxf(st.second, o_second), other_wins ? st.best : o_best);
+    st.second = fmaxf(fmaxf(st.second, o.second), other_wins ? st.best : o.best);
   }
   if (other_wins) {
-    st.best = o_best;
-    st.idx = o_idx;
+    st.best = o.best;
+    st.idx = o.idx;
   }
+}
+
+// Merge the state of the lane `off` away (every lane of the warp takes part).
+template <bool kScore>
+__device__ __forceinline__ void stat_merge(RowStat& st, int off) {
+  RowStat o;
+  o.best = __shfl_xor_sync(0xffffffffu, st.best, off);
+  o.idx = __shfl_xor_sync(0xffffffffu, st.idx, off);
+  if (kScore) {
+    o.second = __shfl_xor_sync(0xffffffffu, st.second, off);
+    o.z = __shfl_xor_sync(0xffffffffu, st.z, off);
+    o.q = __shfl_xor_sync(0xffffffffu, st.q, off);
+  }
+  stat_combine<kScore>(st, o);
 }
 
 // Signal codes: 1 logp, 2 margin, 3 entropy, 4 margin + alpha logp.
@@ -483,6 +516,40 @@ __device__ __forceinline__ float stat_signal(const RowStat& st, int signal, floa
   }
 }
 
+// One column's logit into a row's state (columns in increasing order).
+template <bool kScore>
+__device__ __forceinline__ void stat_add(RowStat& st, float v, int col) {
+  if (kScore) {
+    stat_push(st, v, col);
+  } else if (v > st.best) {
+    st.best = v;
+    st.idx = col;
+  }
+}
+
+// The state of no column: -FLT_MAX, so that padded columns (-1e30) still win
+// over it and lose to real ones.
+__device__ __forceinline__ RowStat stat_empty() { return RowStat{-3.402823466e+38f, -3.402823466e+38f, 0.f, 0.f, 0}; }
+
+// The row's token from its state over all Vp columns: the PAD-after-END rule,
+// the score signal on rows not yet finished, the stores.
+template <bool kScore>
+__device__ __forceinline__ void store_row(const RowStat& st, int row, int* __restrict__ tokens,
+                                          int* __restrict__ finished, int* __restrict__ out,
+                                          float* __restrict__ score, int signal, float alpha, int t,
+                                          int T_len, int end_id, int pad_id) {
+  int tok = st.idx;
+  int f = 0;
+  if (finished != nullptr) {
+    f = finished[row];
+    tok = f ? pad_id : tok;
+    finished[row] = (f || tok == end_id) ? 1 : 0;
+  }
+  if (kScore && !f) score[row] += stat_signal(st, signal, alpha);
+  tokens[row] = tok;
+  if (out != nullptr) out[(size_t)row * T_len + t] = tok;
+}
+
 template <typename T, bool kScore>
 __global__ void __launch_bounds__(kThreads) vocab_argmax_step_kernel(
     const T* __restrict__ h, const T* __restrict__ w_out, const float* __restrict__ b_out,
@@ -496,8 +563,7 @@ __global__ void __launch_bounds__(kThreads) vocab_argmax_step_kernel(
   const int row0 = blockIdx.x * V_BM;
   const int row = row0 + ty;
 
-  // -FLT_MAX: padded columns carry -1e30 and must still lose to real ones
-  RowStat st{-3.402823466e+38f, -3.402823466e+38f, 0.f, 0.f, 0};
+  RowStat st = stat_empty();
   for (int n0 = 0; n0 < Vp; n0 += V_BN) {
     float acc[V_TN];
 #pragma unroll
@@ -534,32 +600,79 @@ __global__ void __launch_bounds__(kThreads) vocab_argmax_step_kernel(
 #pragma unroll
     for (int n = 0; n < V_TN; ++n) {
       const int col = n0 + tx * V_TN + n;
-      if (col < Vp) {
-        const float v = acc[n] + b_out[col];
-        if (kScore) {
-          stat_push(st, v, col);
-        } else if (v > st.best) {
-          st.best = v;
-          st.idx = col;
-        }
-      }
+      if (col < Vp) stat_add<kScore>(st, acc[n] + b_out[col], col);
     }
   }
   // The 16 threads of a row are one half of a warp: reduce (max, lowest index).
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) stat_merge<kScore>(st, off);
-  if (tx == 0 && row < B) {
-    int tok = st.idx;
-    int f = 0;
-    if (finished != nullptr) {
-      f = finished[row];
-      tok = f ? pad_id : tok;
-      finished[row] = (f || tok == end_id) ? 1 : 0;
+  if (tx == 0 && row < B)
+    store_row<kScore>(st, row, tokens, finished, out, score, signal, alpha, t, T_len, end_id, pad_id);
+}
+
+// ---- vocab_argmax_step, bf16, tensor cores ----------------------------------
+// Grid (C, ceil(B / 32)), clusters of C blocks along x: the C blocks of a cluster share a tile of
+// 32 rows, block (rank) r takes the 64-column slices r, r + C, ... of the Vp / 64, C = min(8,
+// slices).  After its slices each block holds one state a row in shared memory; the cluster then
+// merges them through distributed shared memory, rank r finishing the rows i = r (mod C).
+constexpr int VT_STAT_BYTES = (i2l::tile::kWN + 1) * i2l::tile::kBM * (int)sizeof(RowStat);
+constexpr int VT_SMEM = i2l::tile::kSmemBytes + VT_STAT_BYTES;
+constexpr int VT_MAX_CLUSTER = 8;  // the portable cluster size
+
+template <bool kAligned, bool kScore>
+__global__ void __launch_bounds__(i2l::tile::kThreads) vocab_argmax_step_tc_kernel(
+    const bf16* __restrict__ h, const bf16* __restrict__ w_out, const float* __restrict__ b_out,
+    int* __restrict__ tokens, int* __restrict__ finished, int* __restrict__ out,
+    float* __restrict__ score, int signal, float alpha, int t, int T_len,
+    int B, int H, int Vp, int end_id, int pad_id) {
+  namespace tl = i2l::tile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  RowStat* part = reinterpret_cast<RowStat*>(smem_raw + tl::kSmemBytes);  // [kWN][kBM]: a warp column's states
+  RowStat* mine = part + tl::kWN * tl::kBM;                                 // [kBM]: this block's states
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / tl::kWN, wn = warp % tl::kWN, g = lane / 4, q = lane % 4;
+  const int row0 = blockIdx.y * tl::kBM;
+  const int slices = (Vp + tl::kBN - 1) / tl::kBN;
+
+  RowStat run = stat_empty();  // thread tid < kBM: row row0 + tid over this block's slices
+  for (int sl = rank; sl < slices; sl += C) {
+    const int col0 = sl * tl::kBN;
+    float acc[2][4];
+    tl::block_product<kAligned>(acc, ring, h, w_out, B, Vp, H, row0, col0);
+    // A lane holds rows g and g + 8 of its warp's 16 x 16 tile at columns 8 j + 2 q + u: in
+    // increasing order for the lane; across lanes and warps the merges compare indices.
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      RowStat st = stat_empty();
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int col = col0 + wn * 16 + j * 8 + 2 * q + u;
+          if (col < Vp) stat_add<kScore>(st, acc[j][hf * 2 + u] + b_out[col], col);
+        }
+      stat_merge<kScore>(st, 1);  // the four lanes of a row
+      stat_merge<kScore>(st, 2);
+      if (q == 0) part[wn * tl::kBM + wm * 16 + hf * 8 + g] = st;
     }
-    if (kScore && !f) score[row] += stat_signal(st, signal, alpha);
-    tokens[row] = tok;
-    if (out != nullptr) out[(size_t)row * T_len + t] = tok;
+    __syncthreads();
+    if (tid < tl::kBM) {
+#pragma unroll
+      for (int w = 0; w < tl::kWN; ++w) stat_combine<kScore>(run, part[w * tl::kBM + tid]);
+    }
+    // part is written again only after the next block_product's barriers
   }
+  if (tid < tl::kBM) mine[tid] = run;
+  cluster.sync();  // every block's states are written and visible to the cluster
+  if (tid < tl::kBM && tid % C == rank && row0 + tid < B) {
+    RowStat st = stat_empty();
+    for (int k = 0; k < C; ++k) stat_combine<kScore>(st, cluster.map_shared_rank(mine, k)[tid]);
+    store_row<kScore>(st, row0 + tid, tokens, finished, out, score, signal, alpha, t, T_len, end_id, pad_id);
+  }
+  cluster.sync();  // no block leaves while another may still read its states
 }
 
 template <typename T>
@@ -607,6 +720,57 @@ cudaError_t launch_vocab(const void* h, const void* w_out, const void* b_out, vo
   return cudaGetLastError();
 }
 
+// Grid (x, y) and cluster size (along x) of the bf16 vocab kernel.
+void vocab_tc_grid(int B, int Vp, int (&dims)[3]) {
+  const int slices = (Vp + i2l::tile::kBN - 1) / i2l::tile::kBN;
+  const int C = slices < VT_MAX_CLUSTER ? slices : VT_MAX_CLUSTER;
+  dims[0] = C;
+  dims[1] = (B + i2l::tile::kBM - 1) / i2l::tile::kBM;
+  dims[2] = C;
+}
+
+template <bool kAligned, bool kScore>
+cudaError_t launch_vocab_tc(const void* h, const void* w_out, const void* b_out, void* tokens,
+                            void* finished, void* out, void* score, int signal, float alpha, int t,
+                            int T_len, int B, int H, int Vp, int end_id, int pad_id,
+                            cudaStream_t stream) {
+  static bool done[16] = {};
+  auto kernel = vocab_argmax_step_tc_kernel<kAligned, kScore>;
+  cudaError_t err = i2l::allow_dynamic_smem(kernel, VT_SMEM, done);
+  if (err != cudaSuccess) return err;
+  int dims[3];
+  vocab_tc_grid(B, Vp, dims);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(dims[0], dims[1]);
+  cfg.blockDim = dim3(i2l::tile::kThreads);
+  cfg.dynamicSmemBytes = VT_SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = dims[2];
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(h), static_cast<const bf16*>(w_out),
+                           static_cast<const float*>(b_out), static_cast<int*>(tokens),
+                           static_cast<int*>(finished), static_cast<int*>(out), static_cast<float*>(score),
+                           signal, alpha, t, T_len, B, H, Vp, end_id, pad_id);
+  const cudaError_t last = cudaGetLastError();  // read (and cleared) either way
+  return err != cudaSuccess ? err : last;
+}
+
+cudaError_t launch_vocab_bf16(const void* h, const void* w_out, const void* b_out, void* tokens,
+                              void* finished, void* out, void* score, int signal, float alpha, int t,
+                              int T_len, int B, int H, int Vp, int end_id, int pad_id,
+                              cudaStream_t stream) {
+  const bool aligned = H % 8 == 0 && Vp % 8 == 0 && aligned16(h) && aligned16(w_out);
+  auto launch = aligned ? (score != nullptr ? launch_vocab_tc<true, true> : launch_vocab_tc<true, false>)
+                        : (score != nullptr ? launch_vocab_tc<false, true> : launch_vocab_tc<false, false>);
+  return launch(h, w_out, b_out, tokens, finished, out, score, signal, alpha, t, T_len, B, H, Vp, end_id,
+                pad_id, stream);
+}
+
 }  // namespace
 
 // One LSTM layer, one step.  tokens (B,) int32 and emb (Vp, E0) for layer 0,
@@ -645,14 +809,24 @@ extern "C" int i2l_vocab_argmax_step(const void* h, const void* w_out, const voi
                                      int signal, float alpha, int t, int T_len, int B, int H,
                                      int Vp, int end_id, int pad_id, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Vp <= 0 || t < 0 || t >= T_len || tokens == nullptr ||
-      (score != nullptr && (signal < 1 || signal > 4)))
+      (score != nullptr && (signal < 1 || signal > 4)) ||
+      (dtype == i2l::kBF16 && (B + i2l::tile::kBM - 1) / i2l::tile::kBM > 65535))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == i2l::kF32)
     return (int)launch_vocab<float>(h, w_out, b_out, tokens, finished, out, score, signal, alpha,
                                     t, T_len, B, H, Vp, end_id, pad_id, s);
-  if (dtype == i2l::kBF16)
-    return (int)launch_vocab<__nv_bfloat16>(h, w_out, b_out, tokens, finished, out, score, signal,
-                                            alpha, t, T_len, B, H, Vp, end_id, pad_id, s);
+  if (dtype == i2l::kBF16)  // the tensor-core kernel, clusters merging the column slices
+    return (int)launch_vocab_bf16(h, w_out, b_out, tokens, finished, out, score, signal, alpha, t, T_len,
+                                  B, H, Vp, end_id, pad_id, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 vocab kernel's launch for B rows and Vp columns: dims = grid x, grid y, cluster size
+// (along x); returns its dynamic shared memory a block, bytes.
+extern "C" int i2l_vocab_tc_launch_shape(int B, int Vp, int* dims) {
+  int d[3];
+  vocab_tc_grid(B, Vp, d);
+  for (int i = 0; i < 3; ++i) dims[i] = d[i];
+  return VT_SMEM;
 }

@@ -38,6 +38,7 @@ LINK_FLAGS = ARCH_FLAGS + ["-shared", "-Xcompiler", "-fPIC"]
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+IP = ctypes.POINTER(ctypes.c_int)
 # C signature of every exported function: argument types, in order.
 SIGNATURES = {
     # x, taps, bias, out, B, H, W, Cout, nhwc, dtype, stream
@@ -70,6 +71,10 @@ SIGNATURES = {
     # dynamic shared memory of the bf16 tensor-core kernels, bytes
     "i2l_lstm_tc_smem_bytes": [],
     "i2l_conv_tc_smem_bytes": [],
+    # launch shapes, for logs: B, Vp, dims (grid x, grid y, cluster) -> dynamic shared memory bytes
+    "i2l_vocab_tc_launch_shape": [I, I, IP],
+    # B, S, E, A, rows_per_mem, dtype, dims (blocks, rows a group, slots a tile) -> shared memory bytes
+    "i2l_attend_launch_shape": [I] * 6 + [IP],
 }
 # Return types other than int (a CUDA error code).
 RESTYPES = {"i2l_beam_step_scratch": ctypes.c_longlong, "i2l_vocab_sample_step_scratch": ctypes.c_longlong}

@@ -18,13 +18,19 @@ counts, heights and widths in both layouts, conv1_pool's NHWC output, a
 non-contiguous input refused, a refused launch reported, and
 ``convblock_cf``'s backward) at small sizes; and the bf16 tensor-core
 kernels at the main path's widths (``lstm_layer_step`` at B = 512 and 2560
-rows, the conv-pool kernel at the chain blocks' channel counts), with an odd
-H, and with an input 2 bytes past an aligned address.
+rows, the conv-pool kernel at the chain blocks' channel counts, the vocab
+argmax kernel at H = 384 and 512 with every signal, ragged rows, Vp = 128 and
+640, and exact ties across lanes, warps, slices and cluster ranks), with an
+odd H, and with an input 2 bytes past an aligned address; the attention
+kernel with a block a memory row at rows_per_mem 1, 5 and 17, long memories
+read in tiles, and widths that are not whole 16-byte groups.
 Marked ``cuda``: without a CUDA device every test skips.  Imports no JAX, so
 it runs on the card's machine with
 
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda_kernels.py
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -830,3 +836,126 @@ def test_convblock_cf_backward(dev, dtype):
         fused_convblock_cf(x.clone().requires_grad_(), w, b)
     with pytest.raises(RuntimeError, match="no backward"):
         fused_conv_relu_pool(x.permute(0, 2, 3, 1).contiguous(), w.clone().requires_grad_())
+
+
+# ---- the bf16 vocab kernel: tensor cores, column slices merged across a cluster ----------------
+
+
+def _vocab_operands(dev, B, H, Vp, seed, V=None):
+    """bf16 h and W_out, float32 b_out with -1e30 past the first V columns."""
+    rng = np.random.default_rng(seed)
+    V = Vp - 9 if V is None else V
+    w = np.zeros((H, Vp), np.float32)
+    w[:, :V] = rng.normal(size=(H, V)) / np.sqrt(H)
+    b = np.full(Vp, -1e30, np.float32)
+    b[:V] = rng.normal(size=V) * 0.5
+    return _t(rng.uniform(-1, 1, (B, H)), dev, torch.bfloat16), w, b
+
+
+def _vocab_both(h, w_out, b_out, fin0, signal, T=4, t=1, end_id=2, pad_id=0):
+    """The kernel and its plain version from the same state: (tokens, finished, out, score) each."""
+    res = []
+    for step in (ds.vocab_argmax_step, ds.vocab_argmax_step_plain):
+        B = h.shape[0]
+        tok = torch.full((B,), -1, dtype=torch.int32, device=h.device)
+        fin = None if fin0 is None else fin0.clone()
+        out = torch.full((B, T), -1, dtype=torch.int32, device=h.device)
+        score = None if signal is None else torch.full((B,), 0.5, device=h.device)
+        kw = {} if signal is None else dict(score=score, signal=signal)
+        step(h, w_out, b_out, tok, fin, out, t, end_id, pad_id, **kw)
+        res.append((tok, fin, out, score))
+    return res
+
+
+@pytest.mark.parametrize("signal", [None, "logp", "margin", "entropy", "margin_logp:0.5"])
+@pytest.mark.parametrize("B,H,Vp", [(512, 384, 512), (512, 512, 512), (1, 512, 512), (17, 384, 512),
+                                    (513, 512, 512), (33, 96, 128), (70, 64, 640), (9, 40, 256)])
+def test_vocab_argmax_step_tc(dev, signal, B, H, Vp):
+    """bf16 at the main path's shapes (B = 512, H = 384 and 512, Vp = 512) and ragged ones: rows
+    past a 32-row tile, one row, Vp = 128 (a cluster of 2), Vp = 640 (10 slices over 8 ranks), an
+    unaligned H (the guarded loader); finished rows.  Tokens equal the plain version's wherever its
+    top-2 margin exceeds 1e-3 (the float32 sums are taken in another order), scores within 1e-3."""
+    h, w, b = _vocab_operands(dev, B, H, Vp, B + H + Vp)
+    w_out, b_out = _t(w, dev, torch.bfloat16), _t(b, dev)
+    fin0 = torch.from_numpy((np.arange(B) % 5 == 3).astype(np.int32)).to(dev)
+    (tk, fk, ok, sk), (tp, fp, op, sp) = _vocab_both(h, w_out, b_out, fin0, signal)
+    logits = h.float() @ w_out.float() + b_out
+    top2 = torch.topk(logits, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1] > 1e-3) | (fin0 == 1)
+    assert clear.float().mean().item() > 0.9
+    assert torch.equal(tk[clear], tp[clear]) and torch.equal(fk[clear], fp[clear])
+    assert torch.equal(ok[clear], op[clear]) and (tk < Vp - 9).all()
+    assert (tk[fin0 == 1] == 0).all()
+    if signal is not None:
+        assert torch.equal(sk[fin0 == 1], sp[fin0 == 1])  # finished rows add nothing
+        torch.testing.assert_close(sk[clear], sp[clear], atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("Vp,pairs", [(128, [(5, 9), (5, 21), (3, 127)]),
+                                      (512, [(5, 9), (5, 21), (3, 511), (70, 200)]),
+                                      (640, [(70, 582), (3, 639), (63, 64)])])
+@pytest.mark.parametrize("signal", [None, "margin"])
+def test_vocab_argmax_step_tc_ties(dev, Vp, pairs, signal):
+    """Exact ties whose two columns lie in one lane's pair, in two warps of a block, in two slices
+    of two cluster ranks, or in two slices one rank walks (Vp = 640: slices 1 and 9): the lower
+    index wins, and the margin is 0."""
+    B, H = 40, 64
+    for lo, hi in pairs:
+        h, w, b = _vocab_operands(dev, B, H, Vp, lo + hi)
+        w[:, hi] = w[:, lo]
+        b[lo] = b[hi] = 30.0
+        w_out, b_out = _t(w, dev, torch.bfloat16), _t(b, dev)
+        fin0 = torch.from_numpy((np.arange(B) % 4 == 1).astype(np.int32)).to(dev)
+        (tk, fk, _, sk), (tp, fp, _, sp) = _vocab_both(h, w_out, b_out, fin0, signal, end_id=hi)
+        assert (tk[fin0 == 0] == lo).all() and torch.equal(tk, tp) and torch.equal(fk, fp), (lo, hi)
+        assert torch.equal(fk, fin0)  # hi is END here, and it never wins
+        if signal == "margin":
+            assert (sk[fin0 == 0] == 0.5).all() and torch.equal(sk, sp)
+
+
+def test_vocab_argmax_step_tc_launch_shape(dev):
+    """128 blocks at B = 512, Vp = 512: 16 row tiles x a cluster of 8 column slices."""
+    dims = (ctypes.c_int * 3)()
+    smem = _build.lib().i2l_vocab_tc_launch_shape(512, 512, dims)
+    assert tuple(dims) == (8, 16, 8) and smem > 48 * 1024
+    _build.lib().i2l_vocab_tc_launch_shape(512, 128, dims)
+    assert tuple(dims) == (2, 16, 2)
+
+
+# ---- the attention kernel: a block per memory row, all its rows at once ------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,R,S,E,H,A", [
+    (512, 1, 100, 256, 384, 384), (512, 5, 100, 256, 384, 384),   # the main path's widths
+    (3, 17, 13, 40, 24, 56),      # more rows than a group (17 = 8 + 8 + 1)
+    (4, 5, 200, 256, 96, 384),    # a long memory: two tiles in float32
+    (2, 3, 300, 256, 48, 64),     # two tiles in bf16 too
+    (3, 1, 13, 30, 17, 11),       # E and A not multiples of 8: the guarded path
+    (2, 5, 100, 36, 48, 20),
+    (5, 17, 200, 8, 16, 16)])
+def test_attend_step_per_memory(dev, dtype, M, R, S, E, H, A):
+    """rows_per_mem in {1, 5, 17}, S in {13, 100, 200, 300}: equal to the plain version within the
+    tolerance of test_attend_step, and bit for bit to the kernel on the memory repeated R times (a
+    row's context does not depend on how many rows share its memory)."""
+    h, w_h, v, u, mem = _attention_operands(dev, dtype, M * R, S, E, H, A, M + R + S + E)
+    u, mem = u[:M].contiguous(), mem[:M].contiguous()
+    ctx = torch.empty(M * R, E, device=dev, dtype=dtype)
+    got = ds_grid.attend_step(h, w_h, v, u, mem, ctx.clone(), rows_per_mem=R)
+    ref = ds_grid.attend_step_plain(h, w_h, v, u, mem, ctx.clone(), rows_per_mem=R)
+    tol = dict(atol=1e-5, rtol=0) if dtype == torch.float32 else dict(atol=1e-5, rtol=2 * BF16_ULP)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    if R > 1:
+        rep = ds_grid.attend_step(h, w_h, v, u.repeat_interleave(R, 0), mem.repeat_interleave(R, 0), ctx.clone())
+        assert torch.equal(got, rep)
+
+
+def test_attend_step_launch_shape(dev):
+    """A block a memory row: 512 blocks at 512 rows and at 2560 rows of 5 beams, the grid
+    flagship's memory row (100 x 256 bf16) staged whole, in the shared memory of four blocks an SM
+    (one row a memory) or three (the registers of a group of 5 rows allow no more)."""
+    dims = (ctypes.c_int * 3)()
+    smem = _build.lib().i2l_attend_launch_shape(512, 100, 256, 384, 1, 1, dims)
+    assert tuple(dims) == (512, 1, 100) and smem <= 56 * 1024
+    smem = _build.lib().i2l_attend_launch_shape(2560, 100, 256, 384, 5, 1, dims)
+    assert tuple(dims) == (512, 5, 100) and smem <= 75 * 1024
