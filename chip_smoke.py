@@ -347,7 +347,7 @@ def card_line() -> str:
 # The bf16 kernels redesigned for the tensor cores: each instantiation's SASS
 # must hold HMMA (mma.sync) or HGMMA (wgmma) instructions.
 TENSOR_CORE_KERNELS = ("lstm_layer_step_tc_kernel", "conv_pool_tc_kernel", "vocab_argmax_step_tc_kernel",
-                       "attend_hw_tc_kernel")
+                       "attend_hw_tc_kernel", "lstm_seq_fwd_tc_kernel", "lstm_seq_bwd_tc_kernel", "lstm_seq_dw_tc_kernel")
 
 
 def sass_mma_counts(lib_path):
@@ -1737,6 +1737,21 @@ def plain_path():
         enc_mod.conv1_pool, enc_mod.convblock_cf, lstm_mod.lstm_seq = saved
 
 
+@contextlib.contextmanager
+def step_route():
+    """Run bf16 lstm_seq by the per-step route (a launch a step from the
+    host loop; seq_plan names the "step" route), for a before-and-after in
+    one run.  dW_hh stays on the tensor cores."""
+    from img2latex_tpu_torch.ops import lstm_train as lt
+
+    saved = lt.seq_plan
+    lt.seq_plan = lambda B, H, dtype: lt.SeqPlan(lt.SeqRoute("step"), lt.SeqRoute("step"))
+    try:
+        yield
+    finally:
+        lt.seq_plan = saved
+
+
 def rel_err(got, ref) -> float:
     """max |got - ref| / max |ref|, in float32."""
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max().clamp_min(1e-30)).item()
@@ -1780,11 +1795,15 @@ def _lstm_plain_pair(op):
 def phase_lstm_seq(dev, rng, card: str, kernels: dict, T=TRAIN_T, B=TRAIN_BATCH, H=HIDDEN,
                    odd=((3, 5, 40), (1, 3, HIDDEN), (9, 70, 33))) -> None:
     """lstm_seq forward and backward against both plain versions, at the
-    train step's shapes and at odd ones; then the times of one layer."""
+    train step's shapes and at odd ones (bf16: the persistent route, and at
+    H = 33 the step route); then the times of one layer, the backward split
+    into its recurrence and dW_hh, beside the per-step route and cuDNN."""
     import torch
 
+    from img2latex_tpu_torch.ops import lstm_train as lt
     from img2latex_tpu_torch.ops.lstm_train import (
-        lstm_seq, lstm_seq_bwd, lstm_seq_bwd_plain, lstm_seq_fwd, lstm_seq_fwd_plain, lstm_seq_plain)
+        _bwd_recurrence, lstm_seq, lstm_seq_bwd, lstm_seq_bwd_plain, lstm_seq_fwd, lstm_seq_fwd_plain, lstm_seq_plain,
+        persist_shape, seq_plan)
 
     abs_err = {}
     for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
@@ -1802,51 +1821,95 @@ def phase_lstm_seq(dev, rng, card: str, kernels: dict, T=TRAIN_T, B=TRAIN_BATCH,
             check(max(ea.values()) <= LSTM_TOL[name], f"lstm_seq {name} {shape} vs its plain versions: {ea}")
             check(max(eb.values()) <= LSTM_ORACLE_TOL[name], f"lstm_seq {name} {shape} vs lstm_seq_plain: {eb}")
             check(all(torch.isfinite(g.float()).all().item() for g in got), f"lstm_seq {name} {shape}: non-finite")
-            if shape == (T, B, H) and name == "float32":
-                abs_err["fwd"] = max((g.float() - r.float()).abs().max().item() for g, r in zip(got[:3], ref_a[:3]))
-                abs_err["bwd"] = max((g.float() - r.float()).abs().max().item() for g, r in zip(got[3:], ref_a[3:]))
+            if shape == (T, B, H):
+                sfx = "" if name == "float32" else "_bf16"
+                abs_err["fwd" + sfx] = max((g.float() - r.float()).abs().max().item() for g, r in zip(got[:3], ref_a[:3]))
+                abs_err["bwd" + sfx] = max((g.float() - r.float()).abs().max().item() for g, r in zip(got[3:], ref_a[3:]))
 
     # one layer's times at the train step's shapes, bf16
     op = _lstm_operands(dev, rng, T, B, H, torch.bfloat16)
     gx, h0, c0, w = op["gx"], op["h0"], op["c0"], op["w"]
     wt = w.t().contiguous()
+    plan = seq_plan(B, H, torch.bfloat16)
+    shapes = {d: persist_shape(B, H, r, d) for d, r in (("fwd", plan.fwd), ("bwd", plan.bwd))
+              if r.route == "persistent"}
+    log(f"lstm_seq bf16 B={B} H={H}: seq_plan {plan}; persistent launches as the library sees them "
+        f"{json.dumps(shapes)} (max_active_clusters: cudaOccupancyMaxActiveClusters) [{card}]")
+    check(plan.fwd.route == plan.bwd.route == "persistent", f"lstm_seq at B={B}, H={H}: not the persistent route")
     ys, cs, ga = lstm_seq_fwd(gx, h0, c0, wt)
     bwd_args = (op["dys"], op["dhT"], op["dcT"], ga, cs, h0, c0, ys, w)
-    ms_f = time_ms(lambda: lstm_seq_fwd(gx, h0, c0, wt), iters=5, warmup=1)
-    ms_b = time_ms(lambda: lstm_seq_bwd(*bwd_args), iters=5, warmup=1)
+    n_f, n_b = lstm_seq_fwd.persistent_launches, lstm_seq_bwd.persistent_launches
+    dgx, _, _ = _bwd_recurrence(op["dys"], op["dhT"], op["dcT"], ga, cs, c0, w)
+    ms_f = time_ms(lambda: lstm_seq_fwd(gx, h0, c0, wt), iters=20, warmup=2)
+    ms_b = time_ms(lambda: lstm_seq_bwd(*bwd_args), iters=20, warmup=2)
+    ms_rec = time_ms(lambda: _bwd_recurrence(op["dys"], op["dhT"], op["dcT"], ga, cs, c0, w), iters=20, warmup=2)
+    ms_dw = time_ms(lambda: lt._dw_hh(dgx, h0, ys, w), iters=20, warmup=2)
+    check(lstm_seq_fwd.persistent_launches > n_f and lstm_seq_bwd.persistent_launches > n_b,
+          "lstm_seq: the persistent kernels were not launched")
+    with step_route():  # the per-step kernels on the same operands, in this run
+        ms_f_step = time_ms(lambda: lstm_seq_fwd(gx, h0, c0, wt), iters=5, warmup=1)
+        ms_b_step = time_ms(lambda: lstm_seq_bwd(*bwd_args), iters=5, warmup=1)
     ms_fp = time_ms(lambda: lstm_seq_fwd_plain(gx, h0, c0, wt), iters=2, warmup=1)
     ms_bp = time_ms(lambda: lstm_seq_bwd_plain(*bwd_args), iters=2, warmup=1)
-    # the library call: one cuDNN layer, which also computes its input projection
+    # the library call: one cuDNN layer, which also computes its input projection; beside it the
+    # same work on the port's path: the projection's torch.matmul, then lstm_seq
     cudnn = torch.nn.LSTM(H, H, device=dev, dtype=torch.bfloat16)
     x = torch.from_numpy(rng.standard_normal((T, B, H), dtype=np.float32)).to(dev, torch.bfloat16)
     x.requires_grad_()
+    w_ih = cudnn.weight_ih_l0.detach().clone().requires_grad_()
+    w_hh = cudnn.weight_hh_l0.detach().clone().requires_grad_()
+    bias = (cudnn.bias_ih_l0 + cudnn.bias_hh_l0).detach().clone().requires_grad_()
+    z = torch.zeros(B, H, device=dev, dtype=torch.bfloat16)
 
     def cudnn_fwd_bwd():
         y, _ = cudnn(x)
         y.backward(op["dys"])
 
+    def port_fwd():
+        return lstm_seq(torch.matmul(x, w_ih.t()) + bias, z, z, w_hh)[0]
+
+    def port_fwd_bwd():
+        port_fwd().backward(op["dys"])
+
     with torch.no_grad():
-        ms_lf = time_ms(lambda: cudnn(x), iters=5, warmup=1)
-    ms_lfb = time_ms(cudnn_fwd_bwd, iters=5, warmup=1)
+        ms_lf = time_ms(lambda: cudnn(x), iters=10, warmup=2)
+        ms_pf = time_ms(port_fwd, iters=10, warmup=2)
+    ms_lfb = time_ms(cudnn_fwd_bwd, iters=10, warmup=2)
+    ms_pfb = time_ms(port_fwd_bwd, iters=10, warmup=2)
     e = 2
     fwd_bytes = e * (T * B * 4 * H + 4 * H * H + 2 * B * H + 2 * T * B * H + T * B * 4 * H)
+    rec_bytes = e * (2 * T * B * H + T * B * 4 * H + 4 * H * H + 3 * B * H      # dys, cs (c_prev), ga, w, dhT, dcT, c0
+                     + T * B * 4 * H + 2 * B * H)                               # dgates_x, dh0, dc0
+    dw_bytes = e * (T * B * 4 * H + B * H + T * B * H + 4 * H * H)                  # dgates_x, h0, ys; dW_hh
     bwd_bytes = e * (3 * T * B * H + T * B * 4 * H + 4 * H * H + 4 * B * H     # dys, cs, ys, ga, w, dhT, dcT, h0, c0
                      + T * B * 4 * H + 2 * B * H + 4 * H * H)                   # dgates_x, dh0, dc0, dW_hh
-    bnd_f, by_f = bound_ms(fwd_bytes, 2 * T * B * H * 4 * H, "bfloat16")
-    bnd_b, by_b = bound_ms(bwd_bytes, 4 * T * B * H * 4 * H, "bfloat16")
-    log(f"lstm_seq one layer bf16 T={T} B={B} H={H}: forward {ms_f:.3f} ms ({T} launches, "
-        f"{1e3 * ms_f / T:.1f} us each), backward {ms_b:.3f} ms ({T + 1} step launches + 2 dW_hh); "
-        f"plain forward {ms_fp:.3f} ms, backward {ms_bp:.3f} ms; nn.LSTM (cuDNN, with its input "
-        f"projection) forward {ms_lf:.3f} ms, backward {ms_lfb - ms_lf:.3f} ms; bound forward "
-        f"{bnd_f:.4f} ms ({by_f}), backward {bnd_b:.4f} ms ({by_b}) [{card}]")
-    src = "img2latex_tpu_torch/csrc/lstm_seq.cu"
+    flops = 2 * T * B * H * 4 * H
+    bnd_f, by_f = bound_ms(fwd_bytes, flops, "bfloat16")
+    bnd_b, by_b = bound_ms(bwd_bytes, 2 * flops, "bfloat16")
+    bnd_r, by_r = bound_ms(rec_bytes, flops, "bfloat16")
+    bnd_w, by_w = bound_ms(dw_bytes, flops, "bfloat16")
+    log(f"lstm_seq one layer bf16 T={T} B={B} H={H}: forward {ms_f:.4f} ms (1 cluster launch, "
+        f"{1e3 * ms_f / T:.2f} us a step; the step route in this run {ms_f_step:.3f} ms), backward {ms_b:.4f} ms = "
+        f"recurrence {ms_rec:.4f} ms (1 cluster launch, {1e3 * ms_rec / T:.2f} us a step) + dW_hh {ms_dw:.4f} ms "
+        f"(tensor cores, {100 * ms_dw / ms_b:.1f}% of the backward); the step route in this run: backward "
+        f"{ms_b_step:.3f} ms (dW_hh on the tensor cores); plain forward {ms_fp:.3f} ms, "
+        f"backward {ms_bp:.3f} ms; bound forward {bnd_f:.4f} ms ({by_f}), backward {bnd_b:.4f} ms ({by_b}), "
+        f"recurrence {bnd_r:.4f} ({by_r}), dW_hh {bnd_w:.4f} ({by_w}) [{card}]")
+    log(f"one LSTM layer with its input projection, bf16 T={T} B={B} H={H}: nn.LSTM (cuDNN) forward {ms_lf:.4f} ms, "
+        f"forward and backward {ms_lfb:.4f} ms (backward {ms_lfb - ms_lf:.4f}); the port (torch.matmul + lstm_seq) "
+        f"forward {ms_pf:.4f} ms, forward and backward {ms_pfb:.4f} ms (backward {ms_pfb - ms_pf:.4f}) [{card}]")
+    src = "img2latex_tpu_torch/csrc/lstm_seq_tc.cu"
     kernels["lstm_seq_fwd"] = dict(
         name="lstm_seq_fwd", route="cuda", source=src, replaces="img2latex_tpu/ops/pallas/lstm_train.py:103",
-        max_abs_err=abs_err["fwd"], ms=ms_f, plain_ms=ms_fp, bound_ms=bnd_f, bound_by=by_f, library_ms=ms_lf)
+        max_abs_err=abs_err["fwd"], max_abs_err_bf16=abs_err["fwd_bf16"], ms=ms_f, plain_ms=ms_fp, bound_ms=bnd_f,
+        bound_by=by_f, library_ms=ms_lf, parts={"step_route_ms": ms_f_step, "with_projection_ms": ms_pf})
     kernels["lstm_seq_bwd"] = dict(
         name="lstm_seq_bwd", route="cuda", source=src, replaces="img2latex_tpu/ops/pallas/lstm_train.py:205",
-        max_abs_err=abs_err["bwd"], ms=ms_b, plain_ms=ms_bp, bound_ms=bnd_b, bound_by=by_b,
-        library_ms=ms_lfb - ms_lf)
+        max_abs_err=abs_err["bwd"], max_abs_err_bf16=abs_err["bwd_bf16"], ms=ms_b, plain_ms=ms_bp, bound_ms=bnd_b,
+        bound_by=by_b, library_ms=ms_lfb - ms_lf,
+        parts={"recurrence_ms": ms_rec, "dw_hh_ms": ms_dw, "recurrence_bound_ms": bnd_r, "dw_hh_bound_ms": bnd_w,
+               "step_route_ms": ms_b_step,
+               "with_projection_ms": ms_pfb - ms_pf})
 
 
 def phase_conv1_backward(dev, rng, card: str, kernels: dict, cfg, B=TRAIN_BATCH) -> None:
@@ -1995,14 +2058,11 @@ def _time_gemm(dev, m, k, n):
 
 def phase_train_step(dev, card: str, cfg, steps: int = TRAIN_STEPS_TIMED) -> None:
     """The whole train step at bench_train.py's shapes against the plain path,
-    then a timed run with a torch.profiler split."""
+    then timed runs with a torch.profiler split: on the persistent lstm_seq
+    kernels, then on the per-step route."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from img2latex_tpu_torch.models.seq2seq import build_model
-    from img2latex_tpu_torch.ops.conv1_phase import conv1_pool
-    from img2latex_tpu_torch.ops.lstm_train import lstm_seq_bwd, lstm_seq_fwd
     from img2latex_tpu_torch.training.optim import build_optimizer
     from img2latex_tpu_torch.training.steps import create_train_state, make_train_step
 
@@ -2014,18 +2074,42 @@ def phase_train_step(dev, card: str, cfg, steps: int = TRAIN_STEPS_TIMED) -> Non
     state = create_train_state(model, build_optimizer(cfg, model), cfg)
     step = make_train_step(cfg, 0)
     dbatch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}  # on the card, as a device cache would
+    # the persistent lstm_seq kernels (the main path), then the per-step route in this run
+    for what, route in (("persistent lstm_seq", contextlib.nullcontext), ("per-step lstm_seq", step_route)):
+        with route():
+            _time_train_step(what, card, step, state, dbatch, steps)
+    _log_train_gemms(dev, card, cfg)
+
+
+def _time_train_step(what: str, card: str, step, state, dbatch, steps: int) -> None:
+    """Images/s of ``steps`` train steps and launches a step by route, then a
+    torch.profiler split of 3 steps: device time by kernel group, busy share."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from img2latex_tpu_torch.ops.conv1_phase import conv1_pool
+    from img2latex_tpu_torch.ops.lstm_train import lstm_seq_bwd, lstm_seq_fwd
+
     for _ in range(2):
         step(state, dbatch)
     torch.cuda.synchronize()
-    lstm_seq_fwd.launches = lstm_seq_bwd.launches = conv1_pool.launches = conv1_pool.backward_calls = 0
+    counters = ((lstm_seq_fwd, ("launches", "persistent_launches", "step_launches")),
+                (lstm_seq_bwd, ("launches", "persistent_launches", "step_launches", "dw_launches")))
+    for fn, names in counters:
+        for n in names:
+            setattr(fn, n, 0)
+    conv1_pool.launches = conv1_pool.backward_calls = 0
     t0 = time.perf_counter()
     for _ in range(steps):
         m = step(state, dbatch)
     loss = m["loss"].item()  # waits for the card
     ms = (time.perf_counter() - t0) * 1e3 / steps
-    per_step = {"lstm_seq_fwd": lstm_seq_fwd.launches / steps, "lstm_seq_bwd": lstm_seq_bwd.launches / steps,
-                "conv1_pool": conv1_pool.launches / steps, "conv1_pool_bwd": conv1_pool.backward_calls / steps}
-    log(f"train step (vector, {cfg.hardware.compute_dtype}, B={TRAIN_BATCH}): {ms:.2f} ms a step over {steps} steps = "
+    per_step = {f"{fn.__name__}.{n}": getattr(fn, n) / steps for fn, names in counters for n in names}
+    per_step.update({"conv1_pool": conv1_pool.launches / steps, "conv1_pool_bwd": conv1_pool.backward_calls / steps})
+    log(f"train step, {what} (vector, bf16, B={TRAIN_BATCH}): {ms:.2f} ms a step over {steps} steps = "
         f"{TRAIN_BATCH * 1e3 / ms:.1f} images/s, last loss {loss:.4f}; launches a step {json.dumps(per_step)} [{card}]")
     check(np.isfinite(loss), "train step: non-finite loss")
 
@@ -2043,7 +2127,7 @@ def phase_train_step(dev, card: str, cfg, steps: int = TRAIN_STEPS_TIMED) -> Non
               ("GEMMs: head, input projections, vocab product, their gradients",
                ("gemm", "cutlass", "xmma", "sm90", "cublas", "splitk")),
               ("optimizer (Adam, clip, norms)", ("adam", "multi_tensor", "foreach", "norm")))
-    split, other = {}, {}
+    split, other, lstm = {}, {}, {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0) or 0
         if t <= 0 or getattr(e, "device_type", None) != DeviceType.CUDA:  # kernels, not the ops launching them
@@ -2053,15 +2137,22 @@ def phase_train_step(dev, card: str, cfg, steps: int = TRAIN_STEPS_TIMED) -> Non
         split[key] = (ms_g + t / 1e3 / 3, n + e.count / 3)
         if key == "other elementwise":
             other[e.key[:60]] = round(t / 1e3 / 3, 3)
+        if key == "lstm_seq kernels":
+            name = re.search(r"lstm_seq_\w+", e.key).group(0)
+            lstm[name] = round(lstm.get(name, 0.0) + t / 1e3 / 3, 4)
     busy = sum(v for v, _ in split.values())
     if busy > 0:
         top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])
-        log(f"train step under torch.profiler (per step): wall {wall / 3:.2f} ms, device busy {busy:.2f} ms "
+        log(f"train step, {what}, under torch.profiler (per step): wall {wall / 3:.2f} ms, device busy {busy:.2f} ms "
             f"({100 * busy * 3 / wall:.1f}%), host idle {wall / 3 - busy:.2f} ms; by group (ms, launches): "
-            f"{json.dumps({k: [round(a, 3), round(b, 1)] for k, (a, b) in split.items()})}; largest "
-            f"'other' kernels (ms): {json.dumps(top)} [{card}]")
+            f"{json.dumps({k: [round(a, 3), round(b, 1)] for k, (a, b) in split.items()})}; lstm_seq kernels (ms): "
+            f"{json.dumps(lstm)}; largest 'other' kernels (ms): {json.dumps(top)} [{card}]")
     else:
         log("train step under torch.profiler: no device time seen (not measured)")
+
+
+def _log_train_gemms(dev, card: str, cfg) -> None:
+    """The step's large products timed alone, beside the profiler's GEMM group."""
     T, B, E, H = TRAIN_T, TRAIN_BATCH, cfg.model.embedding_dim, cfg.model.decoder.hidden_dim
     C, Hf, Wf = FILTERS[-1], IMG_H // 8, IMG_W // 8
     log(f"GEMMs of the step timed alone (bf16 forward and backward): head ({B} x {C * Hf * Wf} -> {E}) "
@@ -2095,12 +2186,16 @@ def phase_trainer(dev, card: str, cfg, tokenizer, kernels: dict, tmp: str, epoch
     before = trainer.eval_step(trainer.state, batch)["loss"].item()
     torch.cuda.synchronize()
     lstm_seq_fwd.launches = lstm_seq_bwd.launches = conv1_pool.launches = conv1_pool.backward_calls = 0
+    lstm_seq_fwd.persistent_launches = lstm_seq_bwd.persistent_launches = lstm_seq_bwd.dw_launches = 0
     t0 = time.perf_counter()
     result = trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"lstm_seq_fwd": lstm_seq_fwd.launches, "lstm_seq_bwd": lstm_seq_bwd.launches,
-                "conv1_pool": conv1_pool.launches, "conv1_pool_bwd": conv1_pool.backward_calls}
+                "conv1_pool": conv1_pool.launches, "conv1_pool_bwd": conv1_pool.backward_calls,
+                "lstm_seq_fwd.persistent": lstm_seq_fwd.persistent_launches,
+                "lstm_seq_bwd.persistent": lstm_seq_bwd.persistent_launches,
+                "lstm_seq_bwd.dw_hh": lstm_seq_bwd.dw_launches}
     hist = result["history"]
     losses = [hist[e]["train_loss"] for e in sorted(hist)]
     val = [hist[e]["val_loss"] for e in sorted(hist)]
@@ -2113,6 +2208,8 @@ def phase_trainer(dev, card: str, cfg, tokenizer, kernels: dict, tmp: str, epoch
         check(launches[name] > 0, f"{name} was not run on the training path")
         kernels[name]["launches"] = launches[name]
     check(launches["conv1_pool"] > 0, "conv1_pool was not launched on the training path")
+    for name in ("lstm_seq_fwd.persistent", "lstm_seq_bwd.persistent", "lstm_seq_bwd.dw_hh"):
+        check(launches[name] > 0, f"{name} was not launched on the training path")
     check(all(np.isfinite(losses + val)), "Trainer: non-finite loss")
     check(val[-1] < before and losses[-1] < losses[0], "Trainer: the loss on the repeated batch did not fall")
 
@@ -2898,15 +2995,18 @@ def main() -> int:
              "conv1_pool[nhwc]")
     # max_abs_err is the float32 instantiation's; max_abs_err_bf16 that of a
     # bf16 kernel which is not the float32 one (the tensor-core kernels, the
-    # bf16 attention), else null.  ms_method: "eager" (CUDA events around
+    # bf16 attention, the persistent lstm_seq kernels), else null.  parts: a
+    # row's times split further (lstm_seq: the backward's recurrence and
+    # dW_hh, the per-step route in the same run), else null.  ms_method: "eager" (CUDA events around
     # calls the host enqueues) or "cuda_graph" (device time, graph_ms; every
     # row under ~1 ms); the row's three times share it, except where
     # plain_ms_method says otherwise.  ms_eager: the kernel's eager time
     # beside its device time.
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "max_abs_err_bf16", "ms",
-            "ms_eager", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_method", "plain_ms_method")
+            "ms_eager", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_method", "plain_ms_method", "parts")
     for n in order:
         kernels[n].setdefault("max_abs_err_bf16", None)
+        kernels[n].setdefault("parts", None)
         kernels[n].setdefault("ms_method", "eager")
         kernels[n].setdefault("ms_eager", kernels[n]["ms"])
         kernels[n].setdefault("plain_ms_method", kernels[n]["ms_method"])

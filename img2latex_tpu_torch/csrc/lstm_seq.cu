@@ -19,12 +19,15 @@
 //             dW_hh = sum over steps and rows of h_prev^T dpre, in float32,
 //             cast to W_hh's type at the end.
 //
-// The TPU kernel keeps W_hh (2 MB in bf16 at H = 512) in VMEM and walks the T
-// steps inside one program per batch tile.  An SM has 227 KB of shared memory,
-// and one block per batch tile would leave ~131 of 132 SMs idle at B = 128.
-// So, as in greedy_decode.cu's lstm_layer_step, W_hh stays in the 50 MB L2 and
-// each step is one launch from a host loop, tiled over rows x hidden units
-// with float32 CUDA-core products:
+// These are the per-step kernels: float32 (the exactness oracle) runs them,
+// and so does bf16 where a block's slice of W_hh does not fit in shared
+// memory (ops/lstm_train.py::seq_plan); other bf16 widths run the
+// cluster-persistent kernels of lstm_seq_tc.cu, and every bf16 dW_hh its
+// tensor-core kernel.  The TPU kernel keeps W_hh (2 MB in bf16 at H = 512) in
+// VMEM and walks the T steps inside one program per batch tile.  Here W_hh
+// stays in the 50 MB L2, as in greedy_decode.cu's lstm_layer_step, and each
+// step is one launch from a host loop, tiled over rows x hidden units with
+// float32 CUDA-core products:
 //
 //   lstm_seq_fwd_step   a block takes 16*TM rows x 32 hidden units, i.e. the
 //                       128 gate columns {g H + j} of those units, so each
@@ -35,18 +38,17 @@
 //                       last step), then the gate gradients of those units,
 //                       writing dgates_x[t] and the dc carry in place.  T
 //                       launches, plus one that writes dh0 and dc0.
-//   lstm_seq_dw         dW_hh = dgates_x^T @ [h0; ys[:-1]] over all T*B rows at
-//                       once (64x64 output tiles; the rows split into a few
-//                       chunks, each leaving a float32 partial), then one
-//                       launch that sums the partials and casts to W_hh's type.
+//   lstm_seq_dw         float32 only: dW_hh = dgates_x^T @ [h0; ys[:-1]] over
+//                       all T*B rows at once (64x64 output tiles; the rows
+//                       split into a few chunks, each leaving a float32
+//                       partial), then one launch that sums the partials.
 //
 // Bound (H100 SXM, bf16, T = 140, B = 128, H = 512, one layer): the forward
 // moves ~186 MB (gx read, ys, cs, ga written; 0.055 ms) for 37.6 GFLOP
 // (0.038 ms on the tensor cores); the backward 75 GFLOP (0.076 ms) and ~222
-// MB.  The recurrence is serial over T, so neither bound is reachable, and
-// this first version multiplies on the CUDA cores in float32: its limit is
-// the per-step launch and the float32 FMA rate.  A persistent kernel with a
-// grid-wide barrier, wgmma and TMA is later work.
+// MB.  The recurrence is serial over T, so neither bound is reachable; these
+// kernels multiply on the CUDA cores in float32, and their limit is the
+// per-step launch and the float32 FMA rate.
 #include <algorithm>
 #include <initializer_list>
 
@@ -467,16 +469,14 @@ extern "C" int i2l_lstm_seq_bwd_step(const void* dgx_next, const void* w, const 
   return (int)cudaErrorInvalidValue;
 }
 
-// dW_hh (4H, H) = sum over the M = T*B rows of dgates_x[m]^T h_prev[m], in
-// float32, cast to the compute type.  dgx (T, B, 4H); h0 (B, H); ys (T, B, H);
-// partial: nsplit * 4H * H floats of device scratch.  Two launches.
+// float32 dW_hh (4H, H) = sum over the M = T*B rows of dgates_x[m]^T
+// h_prev[m].  dgx (T, B, 4H); h0 (B, H); ys (T, B, H); partial: nsplit * 4H *
+// H floats of device scratch.  Two launches.  bf16 takes lstm_seq_tc.cu's
+// i2l_lstm_seq_dw_tc.
 extern "C" int i2l_lstm_seq_dw(const void* dgx, const void* h0, const void* ys, void* partial,
-                               void* dw, int M, int B, int H, int nsplit, int dtype, void* stream) {
+                               void* dw, int M, int B, int H, int nsplit, void* stream) {
   if (M <= 0 || B <= 0 || H <= 0 || M % B != 0 || nsplit <= 0 || nsplit > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == i2l::kF32) return (int)dw_dispatch<float>(dgx, h0, ys, partial, dw, M, B, H, nsplit, s);
-  if (dtype == i2l::kBF16)
-    return (int)dw_dispatch<__nv_bfloat16>(dgx, h0, ys, partial, dw, M, B, H, nsplit, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dw_dispatch<float>(dgx, h0, ys, partial, dw, M, B, H, nsplit,
+                                 static_cast<cudaStream_t>(stream));
 }

@@ -10,7 +10,8 @@ training and validation) take the JAX package's ``pallas_seq`` path: per
 layer the input projection of all steps with both biases folded in, one
 ``torch.matmul``, then the whole recurrence through
 :func:`~img2latex_tpu_torch.ops.lstm_train.lstm_seq` (the hand-written
-forward and backward kernels on the card).  :meth:`StackedLSTM.step` is the
+forward and backward kernels on the card: in bf16 one cluster-persistent
+launch a layer and direction where ``seq_plan`` finds room).  :meth:`StackedLSTM.step` is the
 single step of the decode loops and of the grid teacher-forced pass.  With
 ``train=True`` both apply dropout between layers (not after the last), as
 flax ``nn.Dropout`` does, drawing from the ``torch.Generator`` given.

@@ -66,8 +66,16 @@ SIGNATURES = {
     "i2l_lstm_seq_fwd_step": [P] * 7 + [I] * 3 + [P],
     # dgx_next, w, dy, ga, cs, c_prev, dc, dgx, dh0, dc0, B, H, dtype, stream
     "i2l_lstm_seq_bwd_step": [P] * 10 + [I] * 3 + [P],
-    # dgx, h0, ys, partial, dw, M, B, H, nsplit, dtype, stream
-    "i2l_lstm_seq_dw": [P] * 5 + [I] * 5 + [P],
+    # dgx, h0, ys, partial, dw, M, B, H, nsplit, stream (float32)
+    "i2l_lstm_seq_dw": [P] * 5 + [I] * 4 + [P],
+    # gx, h0, c0, w_t, ys, cs, ga, T, B, H, cluster, rows, buffers, stream
+    "i2l_lstm_seq_fwd_persist": [P] * 7 + [I] * 6 + [P],
+    # dys, dy_last, dcT, ga, cs, c0, w, dgx, dh0, dc0, T, B, H, cluster, rows, buffers, stream
+    "i2l_lstm_seq_bwd_persist": [P] * 10 + [I] * 6 + [P],
+    # dgx, h0, ys, partial, dw, M, B, H, nsplit, stream
+    "i2l_lstm_seq_dw_tc": [P] * 5 + [I] * 4 + [P],
+    # B, H, cluster, rows, buffers, direction, dims (max active clusters, clusters, threads) -> shared memory bytes
+    "i2l_lstm_seq_persist_shape": [I] * 6 + [IP],
     # dynamic shared memory of the bf16 tensor-core kernels, bytes
     "i2l_lstm_tc_smem_bytes": [],
     "i2l_conv_tc_smem_bytes": [],

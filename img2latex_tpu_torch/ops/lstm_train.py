@@ -14,8 +14,24 @@ holds it (the flax tree stores its transpose).  The forward kernel is handed
 backward kernels take ``w_hh`` (4H, H) itself, the matrix of ``dpre @ W``;
 the returned ``dW_hh`` is (4H, H).
 
-Hand-written CUDA kernels (``csrc/lstm_seq.cu``) carry it on the card, one
-launch per step from a host loop (W_hh is served from L2):
+Hand-written CUDA kernels carry it on the card, by the route :func:`seq_plan`
+names for the batch, width and type:
+
+* bf16, ``"persistent"`` (``csrc/lstm_seq_tc.cu``): one launch a layer and
+  direction.  A thread-block cluster owns 16 or 32 rows for all T steps, its
+  blocks split the hidden units and keep their slice of ``W_hh`` in shared
+  memory, each step's product runs on the tensor cores and the new ``h``
+  (forward) or the float32 partials of ``dh`` (backward) go to the other
+  blocks of the cluster through distributed shared memory before a cluster
+  barrier;
+* ``"step"`` (``csrc/lstm_seq.cu``): one launch a step from a host loop,
+  ``W_hh`` served from L2, float32 products on the CUDA cores - float32 (the
+  exactness oracle), and bf16 where the slice does not fit in shared memory;
+* dW_hh after the recurrence, over all T*B rows at once: on the tensor cores
+  in bf16 (``lstm_seq_tc.cu``), on the CUDA cores in float32 (``lstm_seq.cu``);
+  float32 partials of row chunks, summed without atomics.
+
+Both routes keep the TPU kernels' rounding points:
 
 * :func:`lstm_seq_fwd` - ``g = h @ W_hh^T + gx_t`` in float32, the gates in
   float32, ``ys``, ``cs`` and the activated gates ``ga`` stored in the
@@ -23,10 +39,11 @@ launch per step from a host loop (W_hh is served from L2):
   as the TPU kernel's scratch carries are;
 * :func:`lstm_seq_bwd` - the gate gradients rebuilt from ``ga``, ``cs`` and
   ``c_prev`` in float32, ``dgates_x`` stored in the compute type, ``dh`` and
-  ``dc`` carried in float32, and ``dW_hh`` summed in float32 over every step
-  and row by the dW_hh kernel and its reduce, then cast to ``w_hh``'s type.  The final-state
-  cotangents enter as the JAX VJP feeds them: ``dhT`` joins the last step's
-  ``dys`` (added in the compute type), ``dcT`` starts the dc carry.
+  ``dc`` carried in float32 (:func:`_bwd_recurrence`), and ``dW_hh``
+  summed in float32 over every step and row (:func:`_dw_hh`), then cast
+  to ``w_hh``'s type.  The final-state cotangents enter as the JAX VJP feeds
+  them: ``dhT`` joins the last step's ``dys`` (added in the compute type),
+  ``dcT`` starts the dc carry.
 
 Their plain versions, :func:`lstm_seq_fwd_plain` and :func:`lstm_seq_bwd_plain`,
 compute the same with the same rounding points and run for CPU tensors.
@@ -36,6 +53,8 @@ autograd differentiates: the independent oracle of both.
 
 from __future__ import annotations
 
+import ctypes
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -43,7 +62,15 @@ import torch
 from img2latex_tpu_torch.ops import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SM_COUNT = 132  # H100 SXM: the dW_hh kernel splits its rows until ~2 blocks per SM
+SM_COUNT = 132  # H100 SXM: the dW_hh kernels split their rows to fill the SMs
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may have on an H100 (227 KB)
+MAX_CLUSTER = 16  # blocks a cluster, the non-portable maximum
+PERSIST_UNITS = (8, 16, 24, 32, 40)  # hidden units a block, the instantiated widths
+SM_SMEM = 233_472  # shared memory of an H100 SM (228 KB); each block also reserves 1 KB of it
+# SMs that clusters of 16 fill at once at one block an SM: cudaOccupancyMaxActiveClusters gives 7 on
+# an H100 80GB HBM3, not 132 / 16 = 8, and 14 where two blocks fit an SM's shared memory.
+CO_RESIDENT_SMS = 7 * 16
+_STAGE = 64  # products a tensor-core stage sums from zero
 
 
 def _gates(g: torch.Tensor, H: int):
@@ -127,6 +154,120 @@ def lstm_seq_bwd_plain(dys, dhT, dcT, ga, cs, h0, c0, ys, w):
 
 
 # ---------------------------------------------------------------------------
+# Routes
+# ---------------------------------------------------------------------------
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _fwd_smem(H: int, U: int, nbuf: int, rows: int) -> int:
+    """Dynamic shared memory of a persistent forward block: W_hh^T's slice
+    (depth x 4U), nbuf h buffers of ``rows`` rows (padded by 16 bytes), the
+    new h."""
+    K = _round_up(H, _STAGE)
+    return 2 * (K * 4 * U + nbuf * rows * (K + 8) + rows * U)
+
+
+def _bwd_smem(H: int, U: int, nbuf: int, rows: int) -> int:
+    """... of a persistent backward block: W_hh's rows of its gate columns
+    (4U x H), its dpre slice (``rows`` x 4U, padded by 16 bytes), nbuf
+    buffers of the C ranks' float32 partials of its units (C x rows x U)."""
+    return 2 * (4 * U * H + rows * (4 * U + 8)) + 4 * nbuf * rows * H
+
+
+@dataclass(frozen=True)
+class SeqRoute:
+    """How one direction runs: ``route`` "persistent" (one cluster launch,
+    ``lstm_seq_tc.cu``) or "step" (a launch a step, ``lstm_seq.cu``);
+    ``cluster`` blocks a cluster, ``rows`` a cluster, ``buffers`` exchange
+    buffers (2: one cluster barrier a step, 1: two) and ``smem_bytes`` of
+    dynamic shared memory a block - all 0 on the step route."""
+    route: str
+    cluster: int = 0
+    rows: int = 0
+    buffers: int = 0
+    smem_bytes: int = 0
+
+
+@dataclass(frozen=True)
+class SeqPlan:
+    fwd: SeqRoute
+    bwd: SeqRoute
+
+    def fwd_launches(self, T: int) -> int:
+        return 1 if self.fwd.route == "persistent" else T
+
+    def bwd_launches(self, T: int) -> int:
+        """The recurrence's launches (the step route's last writes dh0 and
+        dc0), plus two of dW_hh (partials, sum)."""
+        return (1 if self.bwd.route == "persistent" else T + 1) + 2
+
+
+_STEP = SeqRoute("step")
+
+
+def co_resident_clusters(C: int, smem: int) -> int:
+    """Clusters of C blocks that the card runs at once when each block has
+    ``smem`` bytes of dynamic shared memory: CO_RESIDENT_SMS SMs, each with
+    as many blocks as its shared memory holds."""
+    return max(1, CO_RESIDENT_SMS * (SM_SMEM // (smem + 1024)) // C)
+
+
+def _persistent(B: int, H: int, smem) -> SeqRoute:
+    """The persistent route at width H, if its slice fits: C = the largest
+    divisor of H / 8 up to 16, U = H / C one of PERSIST_UNITS; 16 rows a
+    cluster, or 32 where they fit and run in fewer waves of co-resident
+    clusters; two exchange buffers where they fit, else one."""
+    if H % 8:
+        return _STEP
+    C = max(d for d in range(1, MAX_CLUSTER + 1) if (H // 8) % d == 0)
+    U = H // C
+    if U not in PERSIST_UNITS:
+        return _STEP
+    best, best_waves = _STEP, 0
+    for r in (16, 32):
+        nbuf = next((n for n in (2, 1) if smem(H, U, n, r) <= SMEM_LIMIT), None)
+        if nbuf is None:
+            break
+        route = SeqRoute("persistent", C, r, nbuf, smem(H, U, nbuf, r))
+        waves = -(-(-(-B // r)) // co_resident_clusters(C, route.smem_bytes))
+        if best is _STEP or waves < best_waves:
+            best, best_waves = route, waves
+    return best
+
+
+def seq_plan(B: int, H: int, dtype: torch.dtype) -> SeqPlan:
+    """The route of each direction for B rows at width H: bf16 takes the
+    persistent cluster kernels where a block's slice of W_hh and its exchange
+    buffer fit in shared memory (H a multiple of 8, H / C <= 40 units a block
+    for C <= 16), and the per-step kernels otherwise; float32 always takes
+    the per-step kernels.  At B = 128: H = 512 runs both directions
+    persistent in 4 clusters of 16 blocks and 32 rows (16 rows would take
+    two waves), its backward with one buffer of partials; H = 384 runs its
+    forward in 8 clusters of 16 rows (two blocks an SM: one wave) and its
+    backward in 4 of 32; H = 640 runs its forward persistent with 16 rows
+    and one h buffer, its backward (a 160 x 640 slice of W_hh and the
+    partials, 245 KB) by steps; H = 1024 by steps."""
+    if B <= 0 or H <= 0 or dtype not in _DTYPES:
+        raise ValueError(f"seq_plan: B={B}, H={H}, dtype {dtype}")
+    if dtype != torch.bfloat16:
+        return SeqPlan(_STEP, _STEP)
+    return SeqPlan(_persistent(B, H, _fwd_smem), _persistent(B, H, _bwd_smem))
+
+
+def persist_shape(B: int, H: int, route: SeqRoute, direction: str) -> dict:
+    """The persistent launch as the library sees it, for logs and tests:
+    its shared memory a block (bytes), clusters, threads a block and
+    ``cudaOccupancyMaxActiveClusters`` for it (needs the card)."""
+    dims = (ctypes.c_int * 3)()
+    smem = _build.lib().i2l_lstm_seq_persist_shape(B, H, route.cluster, route.rows, route.buffers,
+                                                   0 if direction == "fwd" else 1, dims)
+    return {"smem_bytes": smem, "clusters": dims[1], "threads": dims[2], "max_active_clusters": dims[0]}
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -139,12 +280,19 @@ def _check(name: str, dtype: torch.dtype, device: torch.device, *tensors) -> Non
             raise ValueError(f"{name}: operands must be contiguous, of one dtype, on one device")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh copy where its data does not start on 16 bytes (the
+    persistent kernels copy rows in 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def lstm_seq_fwd(gates_x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
                  w_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward over T steps: gates_x (T, B, 4H), h0 and c0 (B, H), w_t = W_hh^T
     (H, 4H), all in the compute type -> ys, cs (T, B, H) and ga (T, B, 4H).
 
-    One kernel launch per step on the card; the plain version on the CPU."""
+    On the card one cluster launch (``seq_plan``'s persistent route) or one
+    launch per step; the plain version on the CPU."""
     if gates_x.device.type == "cpu":
         return lstm_seq_fwd_plain(gates_x, h0, c0, w_t)
     if gates_x.device.type != "cuda":
@@ -159,10 +307,20 @@ def lstm_seq_fwd(gates_x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
     ys = gates_x.new_empty((T, B, H))
     cs = gates_x.new_empty((T, B, H))
     ga = torch.empty_like(gates_x)
+    code, stream = _DTYPES[gates_x.dtype], torch.cuda.current_stream(gates_x.device).cuda_stream
+    route = seq_plan(B, H, gates_x.dtype).fwd
+    if route.route == "persistent":
+        gx, h, c, w = (_aligned(x) for x in (gates_x, h0, c0, w_t))
+        err = _build.lib().i2l_lstm_seq_fwd_persist(
+            gx.data_ptr(), h.data_ptr(), c.data_ptr(), w.data_ptr(), ys.data_ptr(), cs.data_ptr(),
+            ga.data_ptr(), T, B, H, route.cluster, route.rows, route.buffers, stream)
+        _build.check(err, "i2l_lstm_seq_fwd_persist")
+        lstm_seq_fwd.launches += 1
+        lstm_seq_fwd.persistent_launches += 1
+        return ys, cs, ga
     # Step t's operands by address (base + t * stride): slicing a view per
     # step would cost the host more than the step costs the card.
     launch = _build.lib().i2l_lstm_seq_fwd_step
-    code, stream = _DTYPES[gates_x.dtype], torch.cuda.current_stream(gates_x.device).cuda_stream
     s_g, s_h = B * G * gates_x.element_size(), B * H * gates_x.element_size()
     gx, y, cell, a, w = gates_x.data_ptr(), ys.data_ptr(), cs.data_ptr(), ga.data_ptr(), w_t.data_ptr()
     h, c = h0.data_ptr(), c0.data_ptr()
@@ -170,47 +328,64 @@ def lstm_seq_fwd(gates_x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor,
         err = launch(gx + t * s_g, h, c, w, y + t * s_h, cell + t * s_h, a + t * s_g, B, H, code, stream)
         _build.check(err, "i2l_lstm_seq_fwd_step")
         lstm_seq_fwd.launches += 1
+        lstm_seq_fwd.step_launches += 1
         h, c = y + t * s_h, cell + t * s_h
     return ys, cs, ga
 
 
-lstm_seq_fwd.launches = 0
+# launches of every route, and of each
+lstm_seq_fwd.launches = lstm_seq_fwd.persistent_launches = lstm_seq_fwd.step_launches = 0
 
 
 def dw_splits(M: int, H: int) -> int:
-    """Row chunks of the dW_hh kernel for M = T*B rows: enough blocks of
-    64x64 output tiles for about two per SM, each chunk at least 256 rows."""
+    """Row chunks of the float32 dW_hh kernel for M = T*B rows: enough blocks
+    of 64x64 output tiles for about two per SM, each chunk at least 256 rows."""
     tiles = -(-4 * H // 64) * -(-H // 64)
     return max(1, min(-(-2 * SM_COUNT // tiles), -(-M // 256)))
 
 
-def lstm_seq_bwd(dys, dhT, dcT, ga, cs, h0, c0, ys, w):
-    """Backward over T steps from the forward's residuals: dys (T, B, H), dhT
-    and dcT (B, H), ga, cs, ys, h0, c0 as the forward had them, w = W_hh
-    (4H, H), all in the compute type -> (dgates_x (T, B, 4H), dh0, dc0,
-    dW_hh (4H, H)).
+def dw_tc_splits(M: int, H: int) -> int:
+    """Row chunks of the bf16 tensor-core dW_hh kernel: its 128x128 output
+    tiles times the chunks fill the SMs once (one block an SM), each chunk at
+    least 256 rows."""
+    tiles = -(-4 * H // 128) * -(-H // 128)
+    return max(1, min(SM_COUNT // tiles, -(-M // 256)))
 
-    On the card T + 1 launches of the step kernel (the last writes dh0 and
-    dc0), then two of the dW_hh kernel (the float32 partials and their sum);
-    the plain version on the CPU."""
-    if ga.device.type == "cpu":
-        return lstm_seq_bwd_plain(dys, dhT, dcT, ga, cs, h0, c0, ys, w)
-    if ga.device.type != "cuda":
-        raise ValueError(f"lstm_seq_bwd: unsupported device {ga.device}")
+
+def _check_bwd(dys, dhT, dcT, ga, cs, h0, c0, ys, w):
     T, B, H = ys.shape
-    dtype = ga.dtype
-    _check("lstm_seq_bwd", dtype, ga.device, dys, dhT, dcT, ga, cs, h0, c0, ys, w)
+    _check("lstm_seq_bwd", ga.dtype, ga.device, dys, dhT, dcT, ga, cs, h0, c0, ys, w)
     if tuple(dys.shape) != (T, B, H) or tuple(ga.shape) != (T, B, 4 * H) \
             or tuple(cs.shape) != (T, B, H) or tuple(w.shape) != (4 * H, H) \
             or any(tuple(x.shape) != (B, H) for x in (dhT, dcT, h0, c0)):
         raise ValueError("lstm_seq_bwd: shapes disagree")
+
+
+def _bwd_recurrence(dys, dhT, dcT, ga, cs, c0, w):
+    """The backward's recurrence on the card, on operands that
+    :func:`lstm_seq_bwd` has checked: dys (T, B, H), dhT and dcT (B, H), ga,
+    cs, c0 as the forward had them, w = W_hh (4H, H), all in the compute type -> (dgates_x (T, B, 4H), dh0, dc0).  One cluster launch
+    (``seq_plan``'s persistent route) or T + 1 launches of the step kernel
+    (the last writes dh0 and dc0)."""
+    T, B, H = cs.shape
+    dtype = ga.dtype
     dgx = torch.empty_like(ga)
-    dh0 = torch.empty_like(h0)
+    dh0 = torch.empty_like(c0)
     dc0 = torch.empty_like(c0)
-    dc = dcT.to(torch.float32, copy=True).contiguous()  # the float32 dc carry, updated in place
     dy_last = (dys[-1] + dhT).to(dtype)  # dhT joins the last step's cotangent
-    launch = _build.lib().i2l_lstm_seq_bwd_step
     code, stream = _DTYPES[dtype], torch.cuda.current_stream(ga.device).cuda_stream
+    route = seq_plan(B, H, dtype).bwd
+    if route.route == "persistent":
+        ops = [_aligned(x) for x in (dys, dy_last, dcT, ga, cs, c0, w)]
+        err = _build.lib().i2l_lstm_seq_bwd_persist(
+            *(x.data_ptr() for x in ops), dgx.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+            T, B, H, route.cluster, route.rows, route.buffers, stream)
+        _build.check(err, "i2l_lstm_seq_bwd_persist")
+        lstm_seq_bwd.launches += 1
+        lstm_seq_bwd.persistent_launches += 1
+        return dgx, dh0, dc0
+    dc = dcT.to(torch.float32, copy=True).contiguous()  # the float32 dc carry, updated in place
+    launch = _build.lib().i2l_lstm_seq_bwd_step
     s_g, s_h = B * 4 * H * ga.element_size(), B * H * ga.element_size()
     dg, dy, a, cell, w_p, dc_p = (dgx.data_ptr(), dys.data_ptr(), ga.data_ptr(), cs.data_ptr(),
                                   w.data_ptr(), dc.data_ptr())
@@ -221,22 +396,63 @@ def lstm_seq_bwd(dys, dhT, dcT, ga, cs, h0, c0, ys, w):
                      None, None, B, H, code, stream)
         _build.check(err, "i2l_lstm_seq_bwd_step")
         lstm_seq_bwd.launches += 1
+        lstm_seq_bwd.step_launches += 1
     err = launch(dg, w_p, None, None, None, None, dc_p, None, dh0.data_ptr(), dc0.data_ptr(),
                  B, H, code, stream)
     _build.check(err, "i2l_lstm_seq_bwd_step")
     lstm_seq_bwd.launches += 1
-    nsplit = dw_splits(T * B, H)
-    partial = torch.empty((nsplit, 4 * H, H), dtype=torch.float32, device=ga.device)
+    lstm_seq_bwd.step_launches += 1
+    return dgx, dh0, dc0
+
+
+def _dw_hh(dgx, h0, ys, w):
+    """dW_hh (4H, H) = dgates_x^T @ [h0; ys[:-1]] over all T*B rows on the
+    card, on operands that :func:`lstm_seq_bwd` has checked, in ``w``'s
+    type: bf16 on the tensor cores, float32 on the CUDA cores; float32
+    partials of row chunks, then one launch that sums them in a fixed order
+    and casts.  Two launches."""
+    T, B, H = ys.shape
+    M = T * B
+    stream = torch.cuda.current_stream(dgx.device).cuda_stream
     dw = torch.empty_like(w)
-    err = _build.lib().i2l_lstm_seq_dw(dgx.data_ptr(), h0.data_ptr(), ys.data_ptr(),
-                                       partial.data_ptr(), dw.data_ptr(), T * B, B, H, nsplit, code,
-                                       stream)
-    _build.check(err, "i2l_lstm_seq_dw")
+    if dgx.dtype == torch.bfloat16:
+        nsplit = dw_tc_splits(M, H)
+        partial = torch.empty((nsplit, 4 * H, H), dtype=torch.float32, device=dgx.device)
+        err = _build.lib().i2l_lstm_seq_dw_tc(dgx.data_ptr(), h0.data_ptr(), ys.data_ptr(), partial.data_ptr(),
+                                              dw.data_ptr(), M, B, H, nsplit, stream)
+        _build.check(err, "i2l_lstm_seq_dw_tc")
+    else:
+        nsplit = dw_splits(M, H)
+        partial = torch.empty((nsplit, 4 * H, H), dtype=torch.float32, device=dgx.device)
+        err = _build.lib().i2l_lstm_seq_dw(dgx.data_ptr(), h0.data_ptr(), ys.data_ptr(), partial.data_ptr(),
+                                           dw.data_ptr(), M, B, H, nsplit, stream)
+        _build.check(err, "i2l_lstm_seq_dw")
     lstm_seq_bwd.launches += 2
-    return dgx, dh0, dc0, dw
+    lstm_seq_bwd.dw_launches += 2
+    return dw
 
 
-lstm_seq_bwd.launches = 0
+def lstm_seq_bwd(dys, dhT, dcT, ga, cs, h0, c0, ys, w):
+    """Backward over T steps from the forward's residuals: dys (T, B, H), dhT
+    and dcT (B, H), ga, cs, ys, h0, c0 as the forward had them, w = W_hh
+    (4H, H), all in the compute type -> (dgates_x (T, B, 4H), dh0, dc0,
+    dW_hh (4H, H)).
+
+    On the card the recurrence (:func:`_bwd_recurrence`), then
+    dW_hh (:func:`_dw_hh`); the plain version on the CPU."""
+    if ga.device.type == "cpu":
+        return lstm_seq_bwd_plain(dys, dhT, dcT, ga, cs, h0, c0, ys, w)
+    if ga.device.type != "cuda":
+        raise ValueError(f"lstm_seq_bwd: unsupported device {ga.device}")
+    _check_bwd(dys, dhT, dcT, ga, cs, h0, c0, ys, w)
+    dgx, dh0, dc0 = _bwd_recurrence(dys, dhT, dcT, ga, cs, c0, w)
+    return dgx, dh0, dc0, _dw_hh(dgx, h0, ys, w)
+
+
+# launches of every route, and of each: the persistent recurrence, the step
+# recurrence, dW_hh
+lstm_seq_bwd.launches = lstm_seq_bwd.persistent_launches = lstm_seq_bwd.step_launches = 0
+lstm_seq_bwd.dw_launches = 0
 
 
 class _LSTMSeq(torch.autograd.Function):

@@ -627,22 +627,101 @@ def _rel(got, ref):
     return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
 
 
+def _lstm_counts():
+    return (lt.lstm_seq_fwd.launches, lt.lstm_seq_fwd.persistent_launches, lt.lstm_seq_fwd.step_launches,
+            lt.lstm_seq_bwd.launches, lt.lstm_seq_bwd.persistent_launches, lt.lstm_seq_bwd.step_launches,
+            lt.lstm_seq_bwd.dw_launches)
+
+
+def _check_lstm_launches(before, dtype, T, B, H):
+    """The launches of one forward and backward, per route, as seq_plan names them."""
+    plan = lt.seq_plan(B, H, dtype)
+    f, fp, fs, b, bp, bs, dw = (a - z for a, z in zip(_lstm_counts(), before))
+    assert f == plan.fwd_launches(T) and b == plan.bwd_launches(T) and dw == 2
+    assert (fp, fs) == ((1, 0) if plan.fwd.route == "persistent" else (0, T))
+    assert (bp, bs) == ((1, 0) if plan.bwd.route == "persistent" else (0, T + 1))
+
+
+def _lstm_against_plain(op, dtype, T, B, H, tol):
+    before = _lstm_counts()
+    got = _lstm_run(lt.lstm_seq, op)
+    _check_lstm_launches(before, dtype, T, B, H)
+    ys, cs, ga = lt.lstm_seq_fwd_plain(op["gx"], op["h0"], op["c0"], op["w"].t().contiguous())
+    ref = [ys, ys[-1], cs[-1], *lt.lstm_seq_bwd_plain(*op["cts"], ga, cs, op["h0"], op["c0"], ys, op["w"])]
+    for name, g, r in zip(("ys", "hT", "cT", "dgates_x", "dh0", "dc0", "dW_hh"), got, ref):
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, r.double()) <= tol, (name, _rel(g, r.double()))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,B,H", [(7, 5, 40), (1, 3, 64), (9, 70, 33), (4, 130, 96)])
 @pytest.mark.parametrize("zero_state", [False, True])
 def test_lstm_seq(dev, dtype, T, B, H, zero_state):
     """Kernel forward and backward against lstm_seq_fwd_plain / lstm_seq_bwd_plain
     (the same rounding points): float32 sums in another order (1e-5 of the
-    largest value); in bf16 a stored value may round the other way (2^-6)."""
+    largest value); in bf16 a stored value may round the other way (2^-6).
+    The launches follow seq_plan's route: float32 (and bf16 at H = 33) T
+    forward and T + 3 backward launches, bf16 persistent 1 and 3."""
     op = _lstm_op(dev, dtype, T, B, H, seed=T + B + H, zero_state=zero_state)
-    n_f, n_b = lt.lstm_seq_fwd.launches, lt.lstm_seq_bwd.launches
-    got = _lstm_run(lt.lstm_seq, op)
-    assert lt.lstm_seq_fwd.launches - n_f == T and lt.lstm_seq_bwd.launches - n_b == T + 3
-    ys, cs, ga = lt.lstm_seq_fwd_plain(op["gx"], op["h0"], op["c0"], op["w"].t().contiguous())
-    ref = [ys, ys[-1], cs[-1], *lt.lstm_seq_bwd_plain(*op["cts"], ga, cs, op["h0"], op["c0"], ys, op["w"])]
-    tol = 1e-5 if dtype == torch.float32 else 2.0**-6
-    for g, r in zip(got, ref):
-        assert _rel(g, r.double()) <= tol
+    _lstm_against_plain(op, dtype, T, B, H, 1e-5 if dtype == torch.float32 else 2.0**-6)
+
+
+@pytest.mark.parametrize("H", [40, 384, 512, 640, 1024])
+@pytest.mark.parametrize("B", [1, 17, 128, 130, 512])
+@pytest.mark.parametrize("T", [1, 2, 140])
+@pytest.mark.parametrize("zero_state", [False, True])
+def test_lstm_seq_persistent(dev, T, B, H, zero_state):
+    """bf16 on the persistent route (H = 640: its forward; H = 1024 by steps)
+    against the plain versions within 2^-6 of the largest value, at ragged
+    batches (1, 17, 130 rows), one and two steps, 140 steps, and zero and
+    random initial states."""
+    op = _lstm_op(dev, torch.bfloat16, T, B, H, seed=7 * T + 3 * B + H + zero_state, zero_state=zero_state)
+    _lstm_against_plain(op, torch.bfloat16, T, B, H, 2.0**-6)
+
+
+def test_lstm_seq_persist_shape(dev):
+    """The library's persistent launches take the shared memory and the
+    clusters (a tile of seq_plan's rows each) that seq_plan computes, and at
+    least one cluster fits the card."""
+    for B in (17, 130, 512):
+        for H in (40, 384, 512, 640):
+            plan = lt.seq_plan(B, H, torch.bfloat16)
+            for direction, route in (("fwd", plan.fwd), ("bwd", plan.bwd)):
+                if route.route != "persistent":
+                    continue
+                shape = lt.persist_shape(B, H, route, direction)
+                assert shape["smem_bytes"] == route.smem_bytes, (B, H, direction, shape)
+                assert shape["clusters"] == -(-B // route.rows), (B, H, direction, shape)
+                assert shape["max_active_clusters"] >= 1, (B, H, direction, shape)
+
+
+@pytest.mark.parametrize("H,direction,rows", [(384, "fwd", 16), (384, "fwd", 32), (384, "bwd", 16), (384, "bwd", 32),
+                                              (512, "fwd", 16), (512, "fwd", 32), (512, "bwd", 16), (512, "bwd", 32),
+                                              (640, "fwd", 16)])
+def test_lstm_seq_co_resident_clusters(dev, H, direction, rows):
+    """seq_plan picks 16 or 32 rows a cluster by the waves that
+    co_resident_clusters predicts from CO_RESIDENT_SMS, a constant read once
+    from the card, and the blocks an SM's shared memory holds; the library's
+    cudaOccupancyMaxActiveClusters must give the same at every shipped
+    width's persistent launches (B = 128, clusters of 16)."""
+    smem = lt._fwd_smem if direction == "fwd" else lt._bwd_smem
+    nbuf = next(n for n in (2, 1) if smem(H, H // 16, n, rows) <= lt.SMEM_LIMIT)
+    route = lt.SeqRoute("persistent", 16, rows, nbuf, smem(H, H // 16, nbuf, rows))
+    shape = lt.persist_shape(128, H, route, direction)
+    assert shape["max_active_clusters"] == lt.co_resident_clusters(16, route.smem_bytes), (route, shape)
+
+
+def test_lstm_seq_repeats_bit_for_bit(dev):
+    """The train step's shapes (T = 140, B = 128, H = 512, bf16) 20 times:
+    the outputs and every gradient equal the first run's bits.  A missing
+    fence or barrier in the clusters' exchange, or a reduction whose order
+    changes, shows here."""
+    op = _lstm_op(dev, torch.bfloat16, 140, 128, 512, seed=12)
+    first = _lstm_run(lt.lstm_seq, op)
+    for _ in range(19):
+        again = _lstm_run(lt.lstm_seq, op)
+        for name, a, b in zip(("ys", "hT", "cT", "dgates_x", "dh0", "dc0", "dW_hh"), again, first):
+            assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("T,B,H", [(6, 5, 24), (3, 33, 40)])
