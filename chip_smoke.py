@@ -17,8 +17,8 @@ and checks that every kernel of each ran and that the output is right:
 
 Weights are random, from a seed.  Also holds early exit (tokens equal to
 the full loop) and the four per-row score signals of both greedy decodes
-against their plain versions, the beam step (K = 5, and K = 20, wider than
-a kernel block), the attention over memories shared by K beams and the
+against their plain versions, the beam step (K = 5, and K = 20, a tile a
+sample), the attention over memories shared by K beams and the
 whole beam decode of both memory kinds (K = 5, with early exit and a length
 penalty) against theirs; and sampling: the vocab-sample step alone under
 four filter settings, its draws against ``next_token_probs`` (chi-square),
@@ -35,12 +35,17 @@ and two broken ``convblock_cf`` that must fail; ``convblock_cf``'s backward,
 a train step on the chain against the plain path, and phase 16's checkpoint
 loaded with ``use_pallas_chain=True``.
 
-The bf16 ``lstm_layer_step``, ``vocab_argmax_step``, attention ``h @ W_h``
-and conv-pool kernels run on the tensor cores (``mma.sync``): the build's
-SASS must hold HMMA instructions in each of their instantiations (where the
-toolkit has ``cuobjdump``); the bf16 vocab kernel must spread the batch over
-clusters of at least 64 blocks and the attention take a block a memory row
-(``check_launch_shapes``); phase 3 holds ``lstm_layer_step`` in bf16 against
+The bf16 ``lstm_layer_step``, ``vocab_argmax_step``, attention ``h @ W_h``,
+conv-pool, ``vocab_sample_step`` and ``beam_step`` kernels run on the tensor
+cores (``mma.sync``): the build's SASS must hold HMMA instructions in each of
+their instantiations (where the toolkit has ``cuobjdump``); the bf16 vocab,
+sampling and beam kernels must spread the batch over clusters of at least 64
+blocks, as their planners name them, and the attention take a block a memory
+row (``check_launch_shapes``); the sampling and beam steps are held and timed
+on both bf16 routes (the tensor-core cluster kernels and the CUDA-core block
+kernels, ``block_route``) beside the cuBLAS product alone, and the beam and
+sampling decodes and ``predict_batch`` paths must run the cluster kernels;
+phase 3 holds ``lstm_layer_step`` in bf16 against
 its plain version at both widths, both layers, 512 and 2560 rows and a ragged
 shape.  Every kernel under ~1 ms is timed by CUDA-graph replay (device time;
 ``graph_ms``) beside the eager time, which the host's enqueueing bounds, and
@@ -181,7 +186,7 @@ BEAM_MIN_DISTINCT = 10
 # this, so that its memories spread across canvases as phase 8's random
 # memories do (see phase_grid_beam_end_to_end).
 HEAD_GAIN = 32.0
-WIDE_BEAM = 20  # beam_step beyond a kernel block's 16 rows (a block a sample)
+WIDE_BEAM = 20  # beam_step with one sample a 32-row tile (a CUDA-core block's 16 rows exceeded)
 # Sampling.  The four settings of vocab_sample_step alone; the whole decodes
 # and predict_batch run SAMPLE (temperature 0.8, top-k 10, top-p 0.9), and
 # the whole decodes also top-p 0.9 alone, in float32.
@@ -347,7 +352,8 @@ def card_line() -> str:
 # The bf16 kernels redesigned for the tensor cores: each instantiation's SASS
 # must hold HMMA (mma.sync) or HGMMA (wgmma) instructions.
 TENSOR_CORE_KERNELS = ("lstm_layer_step_tc_kernel", "conv_pool_tc_kernel", "vocab_argmax_step_tc_kernel",
-                       "attend_hw_tc_kernel", "lstm_seq_fwd_tc_kernel", "lstm_seq_bwd_tc_kernel", "lstm_seq_dw_tc_kernel")
+                       "attend_hw_tc_kernel", "lstm_seq_fwd_tc_kernel", "lstm_seq_bwd_tc_kernel", "lstm_seq_dw_tc_kernel",
+                       "vocab_sample_step_tc_kernel", "beam_step_tc_kernel")
 
 
 def sass_mma_counts(lib_path):
@@ -380,9 +386,13 @@ def check_tensor_core_build(lib_path) -> None:
     from img2latex_tpu_torch.ops import _build
 
     dims = (ctypes.c_int * 3)()
+    ldims = (ctypes.c_longlong * 5)()
     log(f"dynamic shared memory a block: lstm_layer_step_tc_kernel {_build.lib().i2l_lstm_tc_smem_bytes()} bytes, "
         f"conv_pool_tc_kernel {_build.lib().i2l_conv_tc_smem_bytes()} bytes, vocab_argmax_step_tc_kernel "
-        f"{_build.lib().i2l_vocab_tc_launch_shape(BATCH, 512, dims)} bytes")
+        f"{_build.lib().i2l_vocab_tc_launch_shape(BATCH, 512, dims)} bytes, vocab_sample_step_tc_kernel "
+        f"{_build.lib().i2l_sample_launch_shape(BATCH, GRID_HIDDEN, 512, SAMPLE['top_k'], 1, 1, ldims)} bytes, "
+        f"beam_step_tc_kernel {_build.lib().i2l_beam_launch_shape(BATCH, BEAM, GRID_HIDDEN, 512, 1, ldims)} bytes "
+        f"(at Vp = 512)")
     counts = sass_mma_counts(lib_path)
     if counts is None:
         log("cuobjdump not found: tensor-core instruction counts not measured")
@@ -396,9 +406,13 @@ def check_tensor_core_build(lib_path) -> None:
 
 def check_launch_shapes() -> None:
     """The redesigned kernels' launches at the main path's shapes, from the
-    library: the bf16 vocab kernel spreads B = 512 rows over at least 64
-    blocks in clusters (one 64-column slice a block), and the attention takes
-    one block a memory row, for 512 rows and for 512 x BEAM beam rows alike."""
+    library: the bf16 vocab, sampling and beam kernels spread B = 512 rows
+    (512 x BEAM beam rows) over at least 64 blocks in clusters (one 64-column
+    slice a block; the planners name the launch the library computes), and
+    the attention takes one block a memory row, for 512 rows and for 512 x
+    BEAM beam rows alike."""
+    import torch
+
     from img2latex_tpu_torch.ops import _build
 
     dims = (ctypes.c_int * 3)()
@@ -408,6 +422,19 @@ def check_launch_shapes() -> None:
     log(f"vocab_argmax_step_tc_kernel at B={BATCH}, Vp=512: grid ({gx}, {gy}) = {gx * gy} blocks, "
         f"clusters of {cl} along the columns")
     check(gx * gy >= 64 and cl > 1, "vocab_argmax_step: the bf16 launch is not split over clusters of >= 64 blocks")
+    from img2latex_tpu_torch.ops import beam_decode as bd
+    from img2latex_tpu_torch.ops import decode_step as ds
+
+    for what, plan, shape in (
+            ("vocab_sample_step_tc_kernel", ds.sample_plan(BATCH, GRID_HIDDEN, 512, SAMPLE["top_k"], torch.bfloat16,
+                                                          SAMPLE["top_p"]),
+             ds.launch_shape("sample", BATCH, GRID_HIDDEN, 512, SAMPLE["top_k"], 1, ds.ROUTE_CODES["cluster_tc"])),
+            ("beam_step_tc_kernel", bd.beam_plan(BATCH, BEAM, GRID_HIDDEN, 512, torch.bfloat16),
+             ds.launch_shape("beam", BATCH, BEAM, GRID_HIDDEN, 512, ds.ROUTE_CODES["cluster_tc"]))):
+        log(f"{what} at B={BATCH}{f' x K={BEAM}' if 'beam' in what else ''}, Vp=512: planner {plan}, library {shape}")
+        check(plan == shape and plan.route == "cluster_tc", f"{what}: the planner and the library disagree")
+        check(plan.grid[0] * plan.grid[1] >= 64 and plan.cluster > 1,
+              f"{what}: the bf16 launch is not split over clusters of >= 64 blocks")
     for rows, k in ((BATCH, 1), (BATCH * BEAM, BEAM)):
         smem = lib.i2l_attend_launch_shape(rows, GRID_S, GRID_EMBED, GRID_HIDDEN, k, 1, dims)
         blocks, group, tile = tuple(dims)
@@ -434,7 +461,8 @@ def log_profile(what: str, card: str, fn) -> None:
         if t > 0:
             key = next((k for k in ("attend_hw_tc_kernel", "attend_hw_kernel", "attend_mem_kernel",
                                     "lstm_layer_step_tc_kernel", "lstm_layer_step_kernel", "vocab_argmax_step_tc_kernel",
-                                    "vocab_argmax_step_kernel", "beam_step_kernel", "vocab_sample_step_kernel")
+                                    "vocab_argmax_step_kernel", "beam_step_tc_kernel", "beam_step_kernel",
+                                    "vocab_sample_step_tc_kernel", "vocab_sample_step_kernel")
                         if k in e.key), "other")
             ms, n = by_kernel.get(key, (0.0, 0))
             by_kernel[key] = (ms + t / 1e3, n + e.count)
@@ -877,12 +905,36 @@ def _beam_step_run(step, op, K, out=None, **kw):
     return out
 
 
+def _product_yardstick_ms(dev, rows: int, H: int, Vp: int) -> float:
+    """Device time of ``torch.addmm`` in bf16 at (rows, H) x (H, Vp), by CUDA-graph replay: how
+    long cuBLAS takes for the vocab product alone (a yardstick of the product's share of a step,
+    not a library call of the whole step)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(rows + H)  # its own: the global stream stays as it was
+    a, w, b = (torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16) for shape in ((rows, H), (H, Vp), (Vp,)))
+    return graph_ms(lambda: torch.addmm(b, a, w))
+
+
+def _routes(dtype):
+    """(name, context) of each route a dtype's step is held on: bf16 the tensor-core cluster
+    kernel and the CUDA-core block kernel (block_route), float32 the block kernel."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        return (("cluster_tc", contextlib.nullcontext), ("block", block_route))
+    return (("block", contextlib.nullcontext),)
+
+
 def phase_beam_step(dev, rng, card: str, kernels: dict) -> None:
     """beam_step against beam_step_plain at B = BATCH samples of K = BEAM
     beams, both widths and both types, random and with forced exact ties;
-    and of K = WIDE_BEAM beams at the grid width (a kernel block a sample)."""
+    and of K = WIDE_BEAM beams at the grid width; bf16 on both routes (the
+    tensor-core cluster kernel and the CUDA-core block kernel).  Times both
+    bf16 routes beside the cuBLAS product alone."""
     import torch
 
+    from img2latex_tpu_torch.ops import beam_decode as bd
     from img2latex_tpu_torch.ops.beam_decode import beam_step, beam_step_plain
 
     B, Vp = BATCH, 512
@@ -891,35 +943,43 @@ def phase_beam_step(dev, rng, card: str, kernels: dict) -> None:
         for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             for tie in (False, True):
                 op = _beam_step_operands(dev, rng, B, K, H, Vp, dtype, tie=tie)
-                got = _beam_step_run(beam_step, op, K)
                 gaps = torch.full((B, MAX_LEN, K), float("inf"), device=dev)
                 ref = _beam_step_run(beam_step_plain, op, K, gaps=gaps)
                 clear = gaps[:, 3].amin(dim=-1) > BEAM_STEP_GAP
                 if tie:
                     clear = torch.ones_like(clear)  # exact ties on both sides: the lowest flat index wins
                 rows = clear.repeat_interleave(K)
-                bad = [k for k in ("tokens", "fin") if not torch.equal(got[k][rows], ref[k][rows])]
-                bad += [k for k in ("tok_hist", "par_hist") if not torch.equal(got[k][3][rows], ref[k][3][rows])]
-                bad += [k for k in ("h_dst", "c_dst") if not torch.equal(got[k][:, rows], ref[k][:, rows])]
-                err = (got["scores"][rows] - ref["scores"][rows]).abs().max().item()
-                errs[(width, name, tie, K)] = err
-                log(f"beam_step {width} H={H} {name}{' ties' if tie else ''} B={B} K={K}: "
-                    f"{int(clear.sum())}/{B} samples clear of near-ties (gap > {BEAM_STEP_GAP}); "
-                    f"mismatches {bad or 'none'}; score max abs err {err:.3g} (tol {BEAM_STEP_ATOL})")
-                check(not bad and err <= BEAM_STEP_ATOL and float(clear.float().mean()) >= 0.99,
-                      f"beam_step {width} {name} tie={tie} K={K} disagrees with its plain version")
-                if tie:
-                    par = got["par_hist"][3].view(B, K).long()
-                    check(torch.equal(par, torch.arange(K, device=dev).expand(B, K)),
-                          "beam_step ties: the picks are not beam 0..K-1 in order")
+                for route, ctx in _routes(dtype):
+                    with ctx():
+                        check(bd.beam_plan(B, K, H, Vp, dtype).route == route, f"beam_step: not the {route} route")
+                        n0 = getattr(beam_step, f"{route}_launches")
+                        got = _beam_step_run(beam_step, op, K)
+                        check(getattr(beam_step, f"{route}_launches") == n0 + 1, f"beam_step: {route} not launched")
+                    bad = [k for k in ("tokens", "fin") if not torch.equal(got[k][rows], ref[k][rows])]
+                    bad += [k for k in ("tok_hist", "par_hist") if not torch.equal(got[k][3][rows], ref[k][3][rows])]
+                    bad += [k for k in ("h_dst", "c_dst") if not torch.equal(got[k][:, rows], ref[k][:, rows])]
+                    err = (got["scores"][rows] - ref["scores"][rows]).abs().max().item()
+                    errs[(width, name, tie, K, route)] = err
+                    log(f"beam_step {width} H={H} {name} {route}{' ties' if tie else ''} B={B} K={K}: "
+                        f"{int(clear.sum())}/{B} samples clear of near-ties (gap > {BEAM_STEP_GAP}); "
+                        f"mismatches {bad or 'none'}; score max abs err {err:.3g} (tol {BEAM_STEP_ATOL})")
+                    check(not bad and err <= BEAM_STEP_ATOL and float(clear.float().mean()) >= 0.99,
+                          f"beam_step {width} {name} {route} tie={tie} K={K} disagrees with its plain version")
+                    if tie:
+                        par = got["par_hist"][3].view(B, K).long()
+                        check(torch.equal(par, torch.arange(K, device=dev).expand(B, K)),
+                              "beam_step ties: the picks are not beam 0..K-1 in order")
     K = BEAM
     N = B * K
-    # timing at both widths, bf16; the kernels line keeps the grid path's
+    # timing at both widths, bf16, both routes; the kernels line keeps the grid path's
     for width, H in (("vector", HIDDEN), ("grid", GRID_HIDDEN)):
         op = _beam_step_operands(dev, rng, B, K, H, Vp, torch.bfloat16)
         out_k = _beam_step_run(beam_step, op, K)
         out_p = _beam_step_run(beam_step_plain, op, K)
         ms_k, ms_ke = both_ms(lambda: _beam_step_run(beam_step, op, K, out_k), iters=50)
+        with block_route():
+            ms_b, ms_be = both_ms(lambda: _beam_step_run(beam_step, op, K, out_k), iters=50)
+        ms_y = _product_yardstick_ms(dev, N, H, Vp)
         # the plain version fills a row from the host (pad_row[pad_id] = 0.0), which a CUDA graph
         # cannot capture: its time stays eager (plain_ms_method)
         ms_p = time_ms(lambda: _beam_step_run(beam_step_plain, op, K, out_p), iters=20)
@@ -927,15 +987,18 @@ def phase_beam_step(dev, rng, card: str, kernels: dict) -> None:
                   + 2 * LAYERS * N * H * 2 * 2)  # h, W_out, b_out, scores and finished r/w, tokens + history, carries r/w
         flops = 2 * N * H * Vp
         bnd, by = bound_ms(nbytes, flops, "bfloat16")
-        log(f"beam_step {width} bf16 B={B} K={K} H={H} Vp={Vp}: kernel {ms_k:.4f} ms (device, CUDA graph; eager "
-            f"{ms_ke:.4f}), plain {ms_p:.4f} ms (eager), "
+        log(f"beam_step {width} bf16 B={B} K={K} H={H} Vp={Vp}: tensor-core cluster kernel {ms_k:.4f} ms (device, "
+            f"CUDA graph; eager {ms_ke:.4f}), CUDA-core block kernel {ms_b:.4f} ms (eager {ms_be:.4f}), the product "
+            f"alone in cuBLAS (addmm bf16 {N}x{H}x{Vp}) {ms_y:.4f} ms, plain {ms_p:.4f} ms (eager), "
             f"bound {bnd:.4f} ms ({by}); no single PyTorch call computes log-softmax + per-sample K*V top-K "
             f"+ carry gather [{card}]")
     kernels["beam_step"] = dict(
-        name="beam_step", route="cuda", source="img2latex_tpu_torch/csrc/beam_step.cu",
-        replaces="img2latex_tpu/ops/pallas/beam_decode.py:335", max_abs_err=errs[("grid", "float32", False, BEAM)],
+        name="beam_step", route="cuda", source="img2latex_tpu_torch/csrc/beam_step_tc.cu",
+        replaces="img2latex_tpu/ops/pallas/beam_decode.py:335",
+        max_abs_err=errs[("grid", "float32", False, BEAM, "block")],
+        max_abs_err_bf16=errs[("grid", "bfloat16", False, BEAM, "cluster_tc")],
         ms=ms_k, ms_eager=ms_ke, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=None, ms_method="cuda_graph",
-        plain_ms_method="eager")
+        plain_ms_method="eager", parts={"block_route_ms": ms_b, "product_yardstick_ms": ms_y})
 
 
 def phase_attend_shared(dev, rng, card: str, kernels: dict) -> None:
@@ -1115,7 +1178,10 @@ def phase_beam_decode(models, card: str) -> None:
         for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             kernel, plain, through = _beam_decoders(kind, model, inp, dtype, cfg)
             got_trace, ref_trace = {}, {}
+            n0 = beam_step.cluster_tc_launches
             tokens, scores = kernel(trace=got_trace)
+            check((beam_step.cluster_tc_launches > n0) == (name == "bfloat16"),
+                  f"beam_decode {kind} {name}: the tensor-core route ran {beam_step.cluster_tc_launches - n0} times")
             ref, ref_scores = plain(trace=ref_trace)
             _check_beams(f"beam_decode {kind} {name} K={BEAM} B={BATCH} T={MAX_LEN} length_penalty={LENGTH_PENALTY}",
                          tokens, scores, ref, ref_scores, got_trace, ref_trace, name)
@@ -1246,11 +1312,13 @@ def phase_grid_beam_end_to_end(dev, card, gcfg, gmodel, tokenizer, images, kerne
             torch.cuda.synchronize()
             for k in counters:
                 k.launches = 0
+            beam_step.cluster_tc_launches = 0
             t0 = time.perf_counter()
             ids = pred.predict_batch(images, return_ids=True, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {k.__name__: k.launches for k in counters}
+            launches["beam_step.cluster_tc"] = beam_step.cluster_tc_launches
             log(f"grid predict_batch, {mode} (K={BEAM}, length_penalty={LENGTH_PENALTY}"
                 f"{', frac ' + str(SELECTIVE_FRAC) + ', signal margin' if mode == 'selective' else ''}): "
                 f"{N_IMAGES} images in {wall:.3f} s = {N_IMAGES / wall:.1f} images/s (batch {BATCH}, bf16, card {card}); "
@@ -1258,6 +1326,8 @@ def phase_grid_beam_end_to_end(dev, card, gcfg, gmodel, tokenizer, images, kerne
             need = [k for k in launches if k != "vocab_argmax_step" or mode == "selective"]
             for name in need:
                 check(launches[name] > 0, f"kernel {name} was not launched on the grid {mode} path")
+            check(launches["beam_step.cluster_tc"] == launches["beam_step"],
+                  f"the grid {mode} path ran beam_step off the tensor-core route")
             check(len(ids) == N_IMAGES and all(len(r) <= MAX_LEN for r in ids), f"grid {mode} predict_batch output")
             check(all(tokenizer.end_token_id not in r and all(0 <= t < VOCAB for t in r) for r in ids),
                   f"grid {mode} trimmed ids")
@@ -1370,13 +1440,15 @@ def _sample_step_run(step, op, t=3, out=None, **kw):
 def phase_sample_step(dev, rng, card: str, kernels: dict) -> None:
     """vocab_sample_step against its plain version at B = BATCH, both widths
     and types, the four SAMPLE_SETTINGS (the temperature folded into the
-    weights as the decode folds it); its time and bound in bf16."""
+    weights as the decode folds it), bf16 on both routes; its time and bound
+    in bf16 on both routes, beside the cuBLAS product alone."""
     import torch
 
+    from img2latex_tpu_torch.ops import decode_step as ds
     from img2latex_tpu_torch.ops.decode_step import fold_temperature, vocab_sample_step, vocab_sample_step_plain
 
     B, Vp = BATCH, 512
-    worst = 0.0
+    worst, worst_bf16 = 0.0, 0.0
     for width, H in (("vector", HIDDEN), ("grid", GRID_HIDDEN)):
         for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             op0 = _sample_step_operands(dev, rng, B, H, Vp, dtype)
@@ -1385,27 +1457,37 @@ def phase_sample_step(dev, rng, card: str, kernels: dict) -> None:
                 folded = fold_temperature({"w_out": op0["w_out"], "b_out": op0["b_out"]}, kw.pop("temperature", 1.0))
                 op = dict(op0, w_out=folded["w_out"], b_out=folded["b_out"])
                 seed = int(rng.integers(-(2**31), 2**31))
-                got = _sample_step_run(vocab_sample_step, op, seed=seed, **kw)
                 gaps = torch.full((B, MAX_LEN), float("inf"), device=dev)
                 mass = torch.full((B, MAX_LEN), float("inf"), device=dev)
                 ref = _sample_step_run(vocab_sample_step_plain, op, seed=seed, gaps=gaps, mass_gaps=mass, **kw)
-                ok, stats = compare_draws(got["tok"].cpu().numpy(), ref["tok"].cpu().numpy(),
-                                          gaps[:, 3].cpu().numpy(), mass[:, 3].cpu().numpy(), "float32")
-                log(f"vocab_sample_step {width} H={H} {name} B={B} {json.dumps(setting)}: "
-                    f"{json.dumps({k: stats[k] for k in ('rows_differ', 'rows_differ_unexplained', 'max_gap_at_first_diff', 'max_mass_gap_at_first_diff', 'median_gap')})}")
-                check(ok and stats["rows_differ"] <= B // 100,
-                      f"vocab_sample_step {width} {name} {setting} disagrees with its plain version")
-                if stats["rows_differ"] == 0:
-                    check(torch.equal(got["fin"], ref["fin"]) and torch.equal(got["out"], ref["out"]),
-                          "vocab_sample_step: finished or out differ")
-                if name == "float32" and stats["rows_differ"]:
-                    worst = max(worst, stats["max_gap_at_first_diff"], stats["max_mass_gap_at_first_diff"])
-                if setting == dict(top_k=1):  # the argmax where it is unique
-                    lg = op["h"].float() @ op["w_out"].float() + op["b_out"]
-                    top2 = torch.topk(lg, 2, dim=-1).values
-                    live = (op["fin"] == 0) & (top2[:, 0] > top2[:, 1])
-                    check(torch.equal(got["tok"][live].long(), lg.argmax(-1)[live]), "vocab_sample_step top_k=1")
-    # time, bound: the decode's setting, both widths (the kernels line keeps the grid path's)
+                for route, ctx in _routes(dtype):
+                    with ctx():
+                        plan = ds.sample_plan(B, H, Vp, kw.get("top_k", 0), dtype, kw.get("top_p", 0.0))
+                        check(plan.route == route, f"vocab_sample_step: not the {route} route")
+                        n0 = getattr(vocab_sample_step, f"{route}_launches")
+                        got = _sample_step_run(vocab_sample_step, op, seed=seed, **kw)
+                        check(getattr(vocab_sample_step, f"{route}_launches") == n0 + 1,
+                              f"vocab_sample_step: {route} not launched")
+                    ok, stats = compare_draws(got["tok"].cpu().numpy(), ref["tok"].cpu().numpy(),
+                                              gaps[:, 3].cpu().numpy(), mass[:, 3].cpu().numpy(), "float32")
+                    log(f"vocab_sample_step {width} H={H} {name} {route} B={B} {json.dumps(setting)}: "
+                        f"{json.dumps({k: stats[k] for k in ('rows_differ', 'rows_differ_unexplained', 'max_gap_at_first_diff', 'max_mass_gap_at_first_diff', 'median_gap')})}")
+                    check(ok and stats["rows_differ"] <= B // 100,
+                          f"vocab_sample_step {width} {name} {route} {setting} disagrees with its plain version")
+                    if stats["rows_differ"] == 0:
+                        check(torch.equal(got["fin"], ref["fin"]) and torch.equal(got["out"], ref["out"]),
+                              "vocab_sample_step: finished or out differ")
+                    elif name == "float32":
+                        worst = max(worst, stats["max_gap_at_first_diff"], stats["max_mass_gap_at_first_diff"])
+                    elif route == "cluster_tc":
+                        worst_bf16 = max(worst_bf16, stats["max_gap_at_first_diff"], stats["max_mass_gap_at_first_diff"])
+                    if setting == dict(top_k=1):  # the argmax where it is unique
+                        lg = op["h"].float() @ op["w_out"].float() + op["b_out"]
+                        top2 = torch.topk(lg, 2, dim=-1).values
+                        live = (op["fin"] == 0) & (top2[:, 0] > top2[:, 1])
+                        check(torch.equal(got["tok"][live].long(), lg.argmax(-1)[live]), "vocab_sample_step top_k=1")
+    # time, bound: the decode's setting, both widths and bf16 routes (the kernels line keeps the grid
+    # path's tensor-core route); each setting alone by CUDA-graph replay
     for width, H in (("vector", HIDDEN), ("grid", GRID_HIDDEN)):
         op0 = _sample_step_operands(dev, rng, B, H, Vp, torch.bfloat16)
         folded = fold_temperature({"w_out": op0["w_out"], "b_out": op0["b_out"]}, SAMPLE["temperature"])
@@ -1413,25 +1495,34 @@ def phase_sample_step(dev, rng, card: str, kernels: dict) -> None:
         kw = dict(top_k=SAMPLE["top_k"], top_p=SAMPLE["top_p"], seed=SAMPLE_SEED)
         out_k, out_p = _sample_step_run(vocab_sample_step, op, **kw), _sample_step_run(vocab_sample_step_plain, op, **kw)
         ms_k, ms_ke = both_ms(lambda: _sample_step_run(vocab_sample_step, op, out=out_k, **kw), iters=50)
+        with block_route():
+            ms_b, ms_be = both_ms(lambda: _sample_step_run(vocab_sample_step, op, out=out_k, **kw), iters=50)
+        ms_y = _product_yardstick_ms(dev, B, H, Vp)
         # the plain version's random stream makes host-to-device copies (uniform_field's constants),
         # which a CUDA graph cannot capture: its time stays eager (plain_ms_method)
-        ms_p = ms_pe = time_ms(lambda: _sample_step_run(vocab_sample_step_plain, op, out=out_p, **kw), iters=10)
-        ms_each = {json.dumps(st): time_ms(lambda st=st: _sample_step_run(
-            vocab_sample_step, op, out=out_k, seed=SAMPLE_SEED, top_k=st.get("top_k", 0), top_p=st.get("top_p", 0.0)),
-            iters=20, warmup=2) for st in SAMPLE_SETTINGS}
+        ms_p = time_ms(lambda: _sample_step_run(vocab_sample_step_plain, op, out=out_p, **kw), iters=10)
+        ms_each = {}
+        for st in SAMPLE_SETTINGS:
+            skw = dict(seed=SAMPLE_SEED, top_k=st.get("top_k", 0), top_p=st.get("top_p", 0.0))
+            ms_each[json.dumps(st)] = graph_ms(lambda: _sample_step_run(vocab_sample_step, op, out=out_k, **skw))
+            with block_route():
+                ms_each[json.dumps(st) + " block"] = graph_ms(
+                    lambda: _sample_step_run(vocab_sample_step, op, out=out_k, **skw))
         # h, W_out and b_out read, finished read and written, tokens and the out column written
         nbytes = B * H * 2 + H * Vp * 2 + Vp * 4 + B * 4 * 4
         flops = 2 * B * H * Vp
         bnd, by = bound_ms(nbytes, flops, "bfloat16")
-        log(f"vocab_sample_step {width} bf16 B={B} H={H} Vp={Vp} {json.dumps(SAMPLE)}: kernel {ms_k:.4f} ms (device, "
-            f"CUDA graph; eager {ms_ke:.4f}), plain {ms_p:.4f} ms (eager), bound {bnd:.4f} ms ({by}); each "
-            f"setting (ms, eager): {json.dumps(ms_each)}; "
+        log(f"vocab_sample_step {width} bf16 B={B} H={H} Vp={Vp} {json.dumps(SAMPLE)}: tensor-core cluster kernel "
+            f"{ms_k:.4f} ms (device, CUDA graph; eager {ms_ke:.4f}), CUDA-core block kernel {ms_b:.4f} ms (eager "
+            f"{ms_be:.4f}), the product alone in cuBLAS (addmm bf16 {B}x{H}x{Vp}) {ms_y:.4f} ms, plain {ms_p:.4f} ms "
+            f"(eager), bound {bnd:.4f} ms ({by}); each setting (ms, device, CUDA graph; the cluster kernel, then "
+            f"the block kernel): {json.dumps({k: round(v, 4) for k, v in ms_each.items()})}; "
             f"no single PyTorch call applies top-k, renormalization, top-p and the draw [{card}]")
     kernels["vocab_sample_step"] = dict(
-        name="vocab_sample_step", route="cuda", source="img2latex_tpu_torch/csrc/sample_step.cu",
-        replaces="img2latex_tpu/ops/pallas/grid_decode.py:665", max_abs_err=worst,
+        name="vocab_sample_step", route="cuda", source="img2latex_tpu_torch/csrc/sample_step_tc.cu",
+        replaces="img2latex_tpu/ops/pallas/grid_decode.py:665", max_abs_err=worst, max_abs_err_bf16=worst_bf16,
         ms=ms_k, ms_eager=ms_ke, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=None, ms_method="cuda_graph",
-        plain_ms_method="eager")
+        plain_ms_method="eager", parts={"block_route_ms": ms_b, "product_yardstick_ms": ms_y})
 
 
 def phase_sample_draws(dev, rng) -> None:
@@ -1539,7 +1630,11 @@ def phase_sample_decode(models, card: str) -> None:
         for setting, name, dtype in ((SAMPLE, "float32", torch.float32), (SAMPLE, "bfloat16", torch.bfloat16),
                                      (dict(top_p=0.9), "float32", torch.float32)):
             kernel, plain, through = _sample_decoders(kind, model, inp, dtype, setting)
+            n0 = vocab_sample_step.cluster_tc_launches
             got = kernel()
+            check((vocab_sample_step.cluster_tc_launches > n0) == (name == "bfloat16"),
+                  f"sample_decode {kind} {name}: the tensor-core route ran "
+                  f"{vocab_sample_step.cluster_tc_launches - n0} times")
             ref, gaps, mass = plain()
             check(tuple(got.shape) == (BATCH, MAX_LEN) and got.dtype == torch.int32, "sample decode output")
             ok, stats = compare_draws(got.cpu().numpy(), ref.cpu().numpy(), gaps.cpu().numpy(), mass.cpu().numpy(),
@@ -1606,16 +1701,20 @@ def phase_grid_sample_end_to_end(dev, card, gcfg, gmodel, tokenizer, images, ker
     counters = (conv1_pool, attend_step, lstm_layer_step, vocab_sample_step, vocab_argmax_step)
     for k in counters:
         k.launches = 0
+    vocab_sample_step.cluster_tc_launches = 0
     t0 = time.perf_counter()
     ids = pred.predict_batch(images, return_ids=True, seed=SAMPLE_SEED, **SAMPLE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in counters}
+    launches["vocab_sample_step.cluster_tc"] = vocab_sample_step.cluster_tc_launches
     log(f"grid predict_batch, sampling {json.dumps(SAMPLE)}: {N_IMAGES} images in {wall:.3f} s = "
         f"{N_IMAGES / wall:.1f} images/s (batch {BATCH}, bf16, card {card}); launches {json.dumps(launches)}")
     for name in ("conv1_pool", "attend_step", "lstm_layer_step", "vocab_sample_step"):
         check(launches[name] > 0, f"kernel {name} was not launched on the grid sampling path")
     check(launches["vocab_argmax_step"] == 0, "the sampling path launched the argmax kernel")
+    check(launches["vocab_sample_step.cluster_tc"] == launches["vocab_sample_step"],
+          "the grid sampling path ran vocab_sample_step off the tensor-core route")
     kernels["vocab_sample_step"]["launches"] = launches["vocab_sample_step"]
     check(len(ids) == N_IMAGES and all(len(r) <= MAX_LEN for r in ids), "grid sampling predict_batch output")
     check(all(tokenizer.end_token_id not in r and all(0 <= t < VOCAB for t in r) for r in ids),
@@ -1750,6 +1849,24 @@ def step_route():
         yield
     finally:
         lt.seq_plan = saved
+
+
+@contextlib.contextmanager
+def block_route():
+    """Run bf16 vocab_sample_step and beam_step by the CUDA-core block kernels (the planners name
+    the "block" route, as they do for float32), for the before-and-after in one run."""
+    import torch
+
+    from img2latex_tpu_torch.ops import beam_decode as bd
+    from img2latex_tpu_torch.ops import decode_step as ds
+
+    saved = ds.sample_plan, bd.beam_plan
+    ds.sample_plan = lambda B, H, Vp, top_k, dtype, top_p=0.0: saved[0](B, H, Vp, top_k, torch.float32, top_p)
+    bd.beam_plan = lambda B, K, H, Vp, dtype: saved[1](B, K, H, Vp, torch.float32)
+    try:
+        yield
+    finally:
+        ds.sample_plan, bd.beam_plan = saved
 
 
 def rel_err(got, ref) -> float:

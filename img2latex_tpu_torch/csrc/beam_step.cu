@@ -24,33 +24,44 @@
 // the parent row (h_src -> h_dst, c_src -> c_dst): the TPU kernel's one-hot
 // P @ h (beam_decode.py:231-243).
 //
-// Design.  A block owns G = 16 / K whole samples (G·K <= 16 rows) when
-// K <= 16, and one sample when K > 16, so that the selection, the in-place
-// update of scores and finished, and the carry gather need no other block:
-// the gather goes out of place, from the buffer the LSTM wrote to the one
-// the next step reads.  With several samples a block, W_out (H x Vp, 393 KB
-// in bf16 at H = 384) is read from L2 once per 16 rows and not once per
-// sample (B = 512, K = 5: 171 blocks, 67 MB of L2 reads a step, against
-// 201 MB at one sample a block).  The product is block_logits.cuh's, 16 rows
-// at a time (a sample of K > 16 beams takes ceil(K / 16) of them), and the
-// block's logits (G·K x Vp float32, 32 KB at 16 rows and Vp = 512) stay in
-// shared memory for the log-softmax (16 threads a row, shuffles) and the
-// selection (one warp a sample, K passes over its K·Vp totals; for K > 16
-// the whole block, each pass a block-wide reduction).  Where they do not fit
-// the 227 KB of shared memory beside the staged h and W_out tile (K·Vp·4
-// bytes plus 24 a row), they and the per-row arrays go to a device-memory
-// scratch the wrapper allocates (i2l_beam_step_scratch gives its size), so
-// no beam width is refused below what device memory holds.
+// Two kernels compute it, by route (ops/beam_decode.py::beam_plan names it):
+//   block: beam_step_kernel below, on the CUDA cores; float32 (the exactness
+//     oracle) and bf16 beams wider than 32;
+//   cluster_tc: beam_step_tc.cu's bf16 kernel, row tiles of whole samples with
+//     the product on the tensor cores and its columns split over a cluster.
+//
+// The block kernel.  A block owns G = 16 / K whole samples (G·K <= 16 rows)
+// when K <= 16, and one sample when K > 16, so that the selection, the
+// in-place update of scores and finished, and the carry gather need no other
+// block: the gather goes out of place, from the buffer the LSTM wrote to the
+// one the next step reads.  The product is block_logits.cuh's float32 one on
+// the CUDA cores, 16 rows at a time (a sample of K > 16 beams takes
+// ceil(K / 16) of them), and the block's logits (G·K x Vp float32, 32 KB at
+// 16 rows and Vp = 512) stay in shared memory for the log-softmax (16
+// threads a row, shuffles) and the selection (one warp a sample, K passes
+// over its K·Vp totals; for K > 16 the whole block, each pass a block-wide
+// reduction).  Where they do not fit the 227 KB of shared memory beside the
+// staged h and W_out tile (K·Vp·4 bytes plus 24 a row), they and the per-row
+// arrays go to a device-memory scratch the wrapper allocates (beam_plan's
+// scratch_floats), so no beam width is refused below what device memory
+// holds.
 //
 // Bound: per step the product is 2 K B H Vp FLOP (1.0 GFLOP at B = 512,
 // K = 5, H = 384, Vp = 512), about 1 us at the bf16 tensor-core rate, and the
 // bytes are the h rows, W_out once, the carries gathered (read and written)
-// and the small per-row arrays: ~10 MB, ~3 us at 3.35 TB/s.  This first
-// version multiplies on the CUDA cores in float32 (the float32 FMA rate,
-// 67 TFLOP/s, puts the product at ~15 us).
+// and the small per-row arrays: ~18 MB, ~5 us at 3.35 TB/s.
 #include <cstdint>
 
 #include "block_logits.cuh"
+
+namespace i2l {
+namespace beam_tc {
+int launch_shape(int B, int K, int Vp, int (&dims)[4]);
+cudaError_t launch(const void* h, const void* w_out, const void* b_out, void* scores, void* finished, void* tokens,
+                   void* tok_hist, void* par_hist, const void* h_src, void* h_dst, const void* c_src, void* c_dst,
+                   int L, int B, int K, int H, int Vp, int t, int end_id, int pad_id, cudaStream_t stream);
+}  // namespace beam_tc
+}  // namespace i2l
 
 namespace {
 
@@ -289,13 +300,31 @@ cudaError_t launch(const void* h, const void* w_out, const void* b_out, void* sc
   return cudaGetLastError();
 }
 
+enum Route { kBlock = 0, kClusterTC = 1 };
+
 }  // namespace
 
-// Floats of device-memory scratch i2l_beam_step needs for B samples of K
-// beams: 0 when a block's logits and per-row arrays fit in shared memory.
-extern "C" long long i2l_beam_step_scratch(int B, int K, int H, int Vp) {
-  if (B <= 0 || K <= 0 || H <= 0 || Vp <= 0 || work_fits(K, H, Vp)) return 0;
-  return (long long)n_blocks(B, K) * (long long)work_floats(K, Vp);
+// The launch of a beam step by `route` (0 the block kernel, 1 the bf16
+// cluster kernel of beam_step_tc.cu) for B samples of K beams: dims = grid
+// x, grid y, cluster size (1: none), rows a block's tile, floats of
+// device-memory scratch.  Returns the dynamic shared memory a block, bytes,
+// or -1 where the route does not take the shape.
+extern "C" int i2l_beam_launch_shape(int B, int K, int H, int Vp, int route, long long* dims) {
+  if (B <= 0 || K <= 0 || H <= 0 || Vp <= 0 || Vp % i2l::logits::BN != 0) return -1;
+  if (route == kClusterTC) {
+    int d[4];
+    const int smem = i2l::beam_tc::launch_shape(B, K, Vp, d);
+    if (smem < 0) return -1;
+    const long long out[5] = {d[0], d[1], d[2], d[3], 0};
+    for (int i = 0; i < 5; ++i) dims[i] = out[i];
+    return smem;
+  }
+  if (route != kBlock || smem_bytes(K, H, Vp, false) > kMaxSmem) return -1;
+  const bool fits = work_fits(K, H, Vp);
+  const long long out[5] = {n_blocks(B, K), 1, 1, block_rows(K),
+                            fits ? 0 : (long long)n_blocks(B, K) * (long long)work_floats(K, Vp)};
+  for (int i = 0; i < 5; ++i) dims[i] = out[i];
+  return (int)smem_bytes(K, H, Vp, fits);
 }
 
 // One beam step for B samples of K beams (N = B K rows, sample-major).
@@ -304,19 +333,26 @@ extern "C" long long i2l_beam_step_scratch(int B, int K, int H, int Vp) {
 // (N,) int32, updated in place; tokens (N,) int32 receives the new tokens;
 // tok_hist and par_hist (T, N) int32 receive column t; h_src, c_src (L, N, H)
 // the carries the LSTM left, h_dst, c_dst (L, N, H) receive them reindexed
-// by parent (no aliasing); scratch: i2l_beam_step_scratch floats, or null
-// when that is 0.  All floating operands but b_out, scores and scratch in
-// the compute type (dtype 0 float32, 1 bfloat16).
+// by parent (no aliasing); scratch: the launch shape's scratch floats, or
+// null when that is 0.  All floating operands but b_out, scores and scratch
+// in the compute type (dtype 0 float32, 1 bfloat16); route 0 the block
+// kernel, 1 the cluster kernel (bf16 only).
 extern "C" int i2l_beam_step(const void* h, const void* w_out, const void* b_out, void* scores,
                              void* finished, void* tokens, void* tok_hist, void* par_hist,
                              const void* h_src, void* h_dst, const void* c_src, void* c_dst,
                              void* scratch, int L, int B, int K, int H, int Vp, int t, int end_id,
-                             int pad_id, int dtype, void* stream) {
+                             int pad_id, int route, int dtype, void* stream) {
   if (B <= 0 || K <= 0 || H <= 0 || L <= 0 || Vp <= 0 || Vp % i2l::logits::BN != 0 || t < 0 ||
       pad_id < 0 || pad_id >= Vp || reinterpret_cast<uintptr_t>(w_out) % 16 != 0 ||
       (long long)K * Vp > 0x7fffffffLL || smem_bytes(K, H, Vp, false) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kClusterTC)
+    return dtype == i2l::kBF16 ? (int)i2l::beam_tc::launch(h, w_out, b_out, scores, finished, tokens, tok_hist,
+                                                           par_hist, h_src, h_dst, c_src, c_dst, L, B, K, H, Vp, t,
+                                                           end_id, pad_id, s)
+                               : (int)cudaErrorInvalidValue;
+  if (route != kBlock) return (int)cudaErrorInvalidValue;
   if (dtype == i2l::kF32)
     return (int)launch<float>(h, w_out, b_out, scores, finished, tokens, tok_hist, par_hist, h_src,
                               h_dst, c_src, c_dst, scratch, L, B, K, H, Vp, t, end_id, pad_id, s);

@@ -1,7 +1,8 @@
-// The vocab product of up to 16 rows in one block, into shared (or device)
-// memory: logits[r][col] = h[row0 + r] @ W_out[:, col] + b_out[col] in
-// float32, for the kernels that need a row's whole logits at once
-// (beam_step.cu, sample_step.cu).
+// The CUDA-core vocab product of up to 16 rows in one block, into shared (or
+// device) memory: logits[r][col] = h[row0 + r] @ W_out[:, col] + b_out[col]
+// in float32, for the block kernels of beam_step.cu and sample_step.cu (the
+// float32 route, the exactness oracle, and the bf16 shapes their tensor-core
+// cluster kernels do not take; those use vocab_slices.cuh).
 //
 // The block's h rows are staged in shared memory once, k-major; W_out
 // streams through a 32 x 128 shared tile with the next tile's 16-byte loads

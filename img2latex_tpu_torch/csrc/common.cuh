@@ -25,4 +25,32 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
+// Warp reductions (every lane of the warp takes part and gets the result).  warp_best: the larger
+// value, the lower index on ties.
+__device__ __forceinline__ void warp_best(float& v, int& i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (ov > v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ int warp_min(int v) { return __reduce_min_sync(0xffffffffu, v); }
+
 }  // namespace i2l

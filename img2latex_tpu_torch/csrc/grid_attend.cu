@@ -247,17 +247,8 @@ __device__ __forceinline__ void load_batch(Item (&x)[N], const T* __restrict__ u
   }
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
+using i2l::warp_max;
+using i2l::warp_sum;
 
 // Slots s0 .. s0 + ns - 1 of a memory row into shared memory: 16-byte
 // asynchronous copies (kVec: E a multiple of 16 bytes, base aligned), else

@@ -34,57 +34,56 @@
 // bit for bit; sums in another order move a draw only where two perturbed
 // scores, or the nucleus mass and top_p, are within a rounding step.
 //
-// Design.  A block owns 16 rows.  The product is block_logits.cuh's, and the
-// block's logits (16 x Vp float32, 32 KB at Vp = 512) stay in shared memory;
-// 16 threads (half a warp) serve a row: the top-k passes and the softmax sums
-// are half-warp reductions (the k passes need no mask: each takes the best
-// column below the previous pick in (value, index) order).  For top-p the
-// row's probabilities become 64-bit keys (probability bits above the
-// complemented index, so one descending order puts ties lowest index first),
-// sorted by a bitonic sort of the block's rows in shared memory (16 x Np
-// keys, Np = Vp rounded up to a power of two; 64 KB at Vp = 512), then one
-// lane scans them in order, summing in float32 exactly as the TPU kernel's
-// iterative extraction does, and leaves the key of the last kept token: a
-// column is kept when its key is not below it.  That is one pass where the
-// TPU kernel runs up to Vp extraction passes on the near-uniform rows random
-// weights make.  Where the logits and keys do not fit the 227 KB of shared
-// memory beside the staged h and W_out tile, they go to a device-memory
-// scratch the wrapper allocates (i2l_vocab_sample_step_scratch).
+// Two kernels compute it, by route (ops/decode_step.py::sample_plan names it):
+//   block: vocab_sample_step_kernel below, a block of 16 rows on the CUDA
+//     cores; float32 (the exactness oracle) and the bf16 shapes the cluster
+//     kernel does not take (Vp above 1024, 64 < top_k < Vp);
+//   cluster_tc: sample_step_tc.cu's bf16 kernel, the product on the tensor
+//     cores split over a cluster, then a warp a row.
+//
+// The block kernel.  A block owns 16 rows.  The product is block_logits.cuh's
+// float32 one on the CUDA cores, and the block's logits (16 x Vp float32,
+// 32 KB at Vp = 512) stay in shared memory; 16 threads (half a warp) serve a
+// row: the top-k passes and the softmax sums are half-warp reductions (the k
+// passes need no mask: each takes the best column below the previous pick in
+// (value, index) order).  For top-p the row's probabilities become 64-bit
+// keys (sample_draw.cuh: probability bits above the complemented index, so
+// one descending order puts ties lowest index first), sorted by a bitonic
+// sort of the block's rows in shared memory (16 x Np keys, Np = Vp rounded up
+// to a power of two; 64 KB at Vp = 512), then one lane scans them in order,
+// summing in float32 exactly as the TPU kernel's iterative extraction does,
+// and leaves the key of the last kept token: a column is kept when its key is
+// not below it.  That is one pass where the TPU kernel runs up to Vp
+// extraction passes on the near-uniform rows random weights make.  Where the
+// logits and keys do not fit the 227 KB of shared memory beside the staged h
+// and W_out tile, they go to a device-memory scratch the wrapper allocates
+// (sample_plan's scratch_floats).
 //
 // Bound: per step the product is 2 B H Vp FLOP (0.27 GFLOP at B = H = Vp =
 // 512), ~0.27 us at the bf16 tensor-core rate, and the bytes are h, W_out and
-// the per-row arrays, ~1 MB, ~0.3 us at 3.35 TB/s.  This first version
-// multiplies on the CUDA cores in float32, as vocab_argmax_step does.
+// the per-row arrays, ~1 MB, ~0.3 us at 3.35 TB/s.
 #include <cstdint>
 
 #include "block_logits.cuh"
+#include "sample_draw.cuh"
+
+namespace i2l {
+namespace sample_tc {
+int launch_shape(int B, int Vp, int top_k, int (&dims)[4]);
+cudaError_t launch(const void* h, const void* w_out, const void* b_out, void* tokens, void* finished, void* out,
+                   int t, int T_len, int B, int H, int Vp, int end_id, int pad_id, uint32_t seed, int top_k,
+                   float top_p, int batch_tile, cudaStream_t stream);
+}  // namespace sample_tc
+}  // namespace i2l
 
 namespace {
 
 using i2l::logits::kRows;
 constexpr int kThreads = i2l::logits::kThreads;
 constexpr size_t kMaxSmem = 226 * 1024;  // of the 227 KB a block may opt in to, 1 KB left for static shared memory
-constexpr float kUScale = (float)(1.0 - 2e-7);
-constexpr float kUShift = (float)1e-7;
-typedef unsigned long long u64;
-
-// The TPU kernels' uniform draw for one hash input x (decode_step.py:698-714).
-__device__ __forceinline__ float hash_uniform(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  const float u = __fmul_rn((float)(x >> 8), 1.0f / 16777216.0f);  // exact: 24 bits
-  return __fadd_rn(__fmul_rn(u, kUScale), kUShift);
-}
-
-// Sort key of a probability (non-negative, so its bits order as its value)
-// and its column: descending keys give descending probabilities, ties lowest
-// column first.
-__device__ __forceinline__ u64 prob_key(float p, int col) {
-  return ((u64)__float_as_uint(p) << 32) | (u64)(0xFFFFFFFFu - (uint32_t)col);
-}
+using i2l::draw::hash_uniform;
+using i2l::draw::prob_key;
+using i2l::draw::u64;
 
 // (value, index) of the better of two candidates: the larger value, the lower
 // index on ties.
@@ -238,9 +237,7 @@ __global__ void __launch_bounds__(kThreads) vocab_sample_step_kernel(
   }
 
   // ---- the draw: Gumbel-max over the kept columns ---------------------------
-  const uint32_t r_in = (uint32_t)(row % batch_tile);
-  const uint32_t base = seed + (uint32_t)(row / batch_tile) + (uint32_t)t * 0x9E3779B9u +
-                        r_in * 0x85EBCA6Bu;
+  const uint32_t base = i2l::draw::row_base(seed, row, t, batch_tile);
   const u64 last = nucleus && on ? row_last[ty] : 0ull;
   float best = -INFINITY;
   int idx = Vp;
@@ -255,7 +252,7 @@ __global__ void __launch_bounds__(kThreads) vocab_sample_step_kernel(
       s = l[col];
       if (!(s >= kth)) continue;
     }
-    const float u = hash_uniform(base + (uint32_t)col * 0xC2B2AE35u);
+    const float u = hash_uniform(base + (uint32_t)col * i2l::draw::kHashCol);
     const float v = __fadd_rn(s, -logf(-logf(u)));
     if (v > best) {  // col ascends: a strict > keeps the lowest index
       best = v;
@@ -299,31 +296,56 @@ cudaError_t launch(const void* h, const void* w_out, const void* b_out, void* to
   return cudaGetLastError();
 }
 
+enum Route { kBlock = 0, kClusterTC = 1 };
+
+// Floats of device-memory scratch the block kernel needs for B rows: 0 when
+// a block's logits (and, with top-p on, its sort keys) fit in shared memory.
+long long scratch_floats(int B, int H, int Vp, bool nucleus) {
+  const int Np = pow2_at_least(Vp);
+  if (smem_bytes(H, Vp, Np, nucleus, true) <= kMaxSmem) return 0;
+  return (long long)((B + kRows - 1) / kRows) * (long long)work_floats(Vp, Np, nucleus);
+}
+
 }  // namespace
 
-// Floats of device-memory scratch i2l_vocab_sample_step needs for B rows:
-// 0 when a block's logits (and, with top-p on, its sort keys) fit in shared
-// memory.
-extern "C" long long i2l_vocab_sample_step_scratch(int B, int H, int Vp, int top_p_on) {
-  if (B <= 0 || H <= 0 || Vp <= 0) return 0;
+// The launch of a sampling step by `route` (0 the block kernel, 1 the bf16
+// cluster kernel of sample_step_tc.cu): dims = grid x, grid y, cluster size
+// (1: none), rows a block's tile, floats of device-memory scratch.  Returns
+// the dynamic shared memory a block, bytes, or -1 where the route does not
+// take the shape.
+extern "C" int i2l_sample_launch_shape(int B, int H, int Vp, int top_k, int top_p_on, int route,
+                                       long long* dims) {
+  if (B <= 0 || H <= 0 || Vp <= 0 || Vp % i2l::logits::BN != 0 || top_k < 0) return -1;
+  if (route == kClusterTC) {
+    int d[4];
+    const int smem = i2l::sample_tc::launch_shape(B, Vp, top_k, d);
+    if (smem < 0) return -1;
+    const long long out[5] = {d[0], d[1], d[2], d[3], 0};
+    for (int i = 0; i < 5; ++i) dims[i] = out[i];
+    return smem;
+  }
+  const bool nucleus = top_p_on != 0;
   const int Np = pow2_at_least(Vp);
-  if (smem_bytes(H, Vp, Np, top_p_on != 0, true) <= kMaxSmem) return 0;
-  return (long long)((B + kRows - 1) / kRows) * (long long)work_floats(Vp, Np, top_p_on != 0);
+  if (route != kBlock || smem_bytes(H, Vp, Np, nucleus, false) > kMaxSmem) return -1;
+  const long long scratch = scratch_floats(B, H, Vp, nucleus);
+  const long long out[5] = {(B + kRows - 1) / kRows, 1, 1, kRows, scratch};
+  for (int i = 0; i < 5; ++i) dims[i] = out[i];
+  return (int)smem_bytes(H, Vp, Np, nucleus, scratch == 0);
 }
 
 // One sampling step.  h (B, H); w_out (H, Vp) with Vp a multiple of 128,
 // 16-byte aligned, and b_out (Vp,) float32, the temperature folded in;
 // tokens (B,) int32 receives the token; finished (B,) int32 or null (no END
-// rule); out (B, T_len) int32 or null, column t; scratch:
-// i2l_vocab_sample_step_scratch floats, or null when that is 0.  seed is the
-// int32 seed of the first tile as its uint32 bits; top_k 0 or top_p 0 turn
-// that filter off, one of them must be on.  h and w_out in the compute type
-// (dtype 0 float32, 1 bfloat16).
+// rule); out (B, T_len) int32 or null, column t; scratch: the launch shape's
+// scratch floats, or null when that is 0.  seed is the int32 seed of the
+// first tile as its uint32 bits; top_k 0 or top_p 0 turn that filter off,
+// one of them must be on.  h and w_out in the compute type (dtype 0 float32,
+// 1 bfloat16); route 0 the block kernel, 1 the cluster kernel (bf16 only).
 extern "C" int i2l_vocab_sample_step(const void* h, const void* w_out, const void* b_out,
                                      void* tokens, void* finished, void* out, void* scratch, int t,
                                      int T_len, int B, int H, int Vp, int end_id, int pad_id,
-                                     int seed, int top_k, float top_p, int batch_tile, int dtype,
-                                     void* stream) {
+                                     int seed, int top_k, float top_p, int batch_tile, int route,
+                                     int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Vp <= 0 || Vp % i2l::logits::BN != 0 || Vp > (1 << 30) || t < 0 ||
       t >= T_len || tokens == nullptr || top_k < 0 || !(top_p >= 0.f) ||
       (top_k == 0 && top_p == 0.f) || batch_tile <= 0 ||
@@ -332,6 +354,12 @@ extern "C" int i2l_vocab_sample_step(const void* h, const void* w_out, const voi
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t useed = (uint32_t)seed;
+  if (route == kClusterTC)
+    return dtype == i2l::kBF16 ? (int)i2l::sample_tc::launch(h, w_out, b_out, tokens, finished, out, t, T_len, B,
+                                                             H, Vp, end_id, pad_id, useed, top_k, top_p,
+                                                             batch_tile, s)
+                               : (int)cudaErrorInvalidValue;
+  if (route != kBlock) return (int)cudaErrorInvalidValue;
   if (dtype == i2l::kF32)
     return (int)launch<float>(h, w_out, b_out, tokens, finished, out, scratch, t, T_len, B, H, Vp,
                               end_id, pad_id, useed, top_k, top_p, batch_tile, s);

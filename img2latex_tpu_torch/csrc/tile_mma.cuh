@@ -1,6 +1,7 @@
 // One block's 32-row x 64-column tile of C = A B on the tensor cores, for the bf16 row kernels
 // whose product is small and whose epilogue is their own: vocab_argmax_step (greedy_decode.cu,
-// A = h, B = W_out) and attention's hw = h @ W_h (grid_attend.cu).
+// A = h, B = W_out), the sampling and beam steps (sample_step_tc.cu, beam_step_tc.cu, through
+// vocab_slices.cuh) and attention's hw = h @ W_h (grid_attend.cu).
 //
 // A (M x K) row-major, B (K x N) row-major (k-major, N contiguous), both bf16.  256 threads a
 // block, 8 warps as 2 (rows) x 4 (columns) of 16 x 16 each: per k16 step a warp does one

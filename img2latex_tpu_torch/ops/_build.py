@@ -39,6 +39,7 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 IP = ctypes.POINTER(ctypes.c_int)
+LLP = ctypes.POINTER(ctypes.c_longlong)
 # C signature of every exported function: argument types, in order.
 SIGNATURES = {
     # x, taps, bias, out, B, H, W, Cout, nhwc, dtype, stream
@@ -53,15 +54,11 @@ SIGNATURES = {
     # h, w_h, v, u, mem, hw, ctx, B, S, E, H, A, rows_per_mem, dtype, stream
     "i2l_attend_step": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
     # h, w_out, b_out, scores, finished, tokens, tok_hist, par_hist, h_src, h_dst, c_src, c_dst,
-    # scratch, L, B, K, H, Vp, t, end_id, pad_id, dtype, stream
-    "i2l_beam_step": [P] * 13 + [I] * 9 + [P],
-    # B, K, H, Vp -> floats of device-memory scratch
-    "i2l_beam_step_scratch": [I] * 4,
+    # scratch, L, B, K, H, Vp, t, end_id, pad_id, route, dtype, stream
+    "i2l_beam_step": [P] * 13 + [I] * 10 + [P],
     # h, w_out, b_out, tokens, finished, out, scratch, t, T, B, H, Vp, end_id, pad_id, seed,
-    # top_k, top_p, batch_tile, dtype, stream
-    "i2l_vocab_sample_step": [P] * 7 + [I] * 9 + [F, I, I, P],
-    # B, H, Vp, top_p_on -> floats of device-memory scratch
-    "i2l_vocab_sample_step_scratch": [I] * 4,
+    # top_k, top_p, batch_tile, route, dtype, stream
+    "i2l_vocab_sample_step": [P] * 7 + [I] * 9 + [F, I, I, I, P],
     # gx, h_prev, c_prev, w_t, ys, cs, ga, B, H, dtype, stream
     "i2l_lstm_seq_fwd_step": [P] * 7 + [I] * 3 + [P],
     # dgx_next, w, dy, ga, cs, c_prev, dc, dgx, dh0, dc0, B, H, dtype, stream
@@ -83,9 +80,11 @@ SIGNATURES = {
     "i2l_vocab_tc_launch_shape": [I, I, IP],
     # B, S, E, A, rows_per_mem, dtype, dims (blocks, rows a group, slots a tile) -> shared memory bytes
     "i2l_attend_launch_shape": [I] * 6 + [IP],
+    # B, H, Vp, top_k, top_p_on, route / B, K, H, Vp, route; dims (grid x, grid y, cluster, rows a
+    # tile, scratch floats) -> shared memory bytes, -1 where the route does not take the shape
+    "i2l_sample_launch_shape": [I] * 6 + [LLP],
+    "i2l_beam_launch_shape": [I] * 5 + [LLP],
 }
-# Return types other than int (a CUDA error code).
-RESTYPES = {"i2l_beam_step_scratch": ctypes.c_longlong, "i2l_vocab_sample_step_scratch": ctypes.c_longlong}
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
@@ -165,7 +164,7 @@ def lib() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
-                fn.restype = RESTYPES.get(name, ctypes.c_int)
+                fn.restype = ctypes.c_int
             handle.i2l_error_string.argtypes = [I]
             handle.i2l_error_string.restype = ctypes.c_char_p
             _lib = handle

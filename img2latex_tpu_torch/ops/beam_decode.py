@@ -7,8 +7,11 @@ LSTM over K·B rows, the vocab projection, a per-sample top-K over the K·Vp
 candidates and the parent gather of the carries.  Here each step is L
 launches of ``lstm_layer_step`` (``csrc/greedy_decode.cu``, unchanged: it
 takes any row count) and one launch of :func:`beam_step`
-(``csrc/beam_step.cu``): the vocab product, the log-softmax, END absorption,
-the per-sample top-K (the lowest flat index wins ties), the token, parent,
+(:func:`beam_plan` names its route: in bf16 ``csrc/beam_step_tc.cu``, whole
+samples a row tile with the product on the tensor cores and its columns
+split over a thread-block cluster; otherwise ``csrc/beam_step.cu``'s
+CUDA-core kernel): the vocab product, the log-softmax, END absorption, the
+per-sample top-K (the lowest flat index wins ties), the token, parent,
 score and finished updates, the history column and the carry gather.
 
 Rows are sample-major (row ``b * K + k`` is beam k of sample b) over the
@@ -22,6 +25,7 @@ are filled with PAD tokens and identity parents first, and the host reads
 the all-finished flag every :data:`~img2latex_tpu_torch.ops.decode_step.EARLY_EXIT_EVERY`
 steps.
 
+* :func:`beam_plan` - the route of a beam step;
 * :func:`beam_step` / :func:`beam_step_plain` - one step after the LSTM;
 * :func:`beam_decode` / :func:`beam_decode_plain` - the whole decode;
 * :func:`beam_divergence` - where two traced decodes of the same inputs
@@ -46,16 +50,48 @@ from img2latex_tpu_torch.decoding.decode import (
 from img2latex_tpu_torch.ops import _build
 from img2latex_tpu_torch.ops.decode_step import (
     _DTYPES,
+    BLOCK_ROWS,
     EARLY_EXIT_EVERY,
+    MAX_GRID_Y,
+    ROUTE_CODES,
+    TILE_ROWS,
     ContextFn,
+    StepPlan,
+    _check_plan_args,
+    _count_launch,
+    block_plan,
+    cluster_tc_plan,
     lstm_layer_step,
     lstm_layer_step_plain,
 )
+
+BEAM_TC_MAX_K = TILE_ROWS  # csrc/beam_step_tc.cu: a row tile holds at least one whole sample
+BEAM_TC_MAX_SMEM = 224 * 1024
 
 
 def _check_beam(K: int) -> None:
     if K < 1:
         raise ValueError(f"beam width {K} is not a positive number of beams")
+
+
+def beam_plan(B: int, K: int, H: int, Vp: int, dtype: torch.dtype) -> StepPlan:
+    """The route of :func:`beam_step` for B samples of K beams: bf16 takes
+    the tensor-core cluster kernel where a 32-row tile holds a whole sample
+    (K <= 32; G = 32 // K samples a tile, so B = 512, K = 5 is 86 tiles of
+    30 rows, 688 blocks in clusters of 8) and a block's slices fit its
+    shared memory; float32 and wider bf16 beams take the CUDA-core kernel
+    (G = 16 // K samples a block, or one sample for K > 16), whose logits go
+    to device-memory scratch where they do not fit its shared memory."""
+    _check_plan_args("beam_plan", B, H, Vp, dtype)
+    if K < 1:
+        raise ValueError(f"beam_plan: beam width {K}")
+    if dtype == torch.bfloat16 and K <= BEAM_TC_MAX_K:
+        G = TILE_ROWS // K
+        plan = cluster_tc_plan(-(-B // G), Vp, G * K)
+        if plan.smem_bytes <= BEAM_TC_MAX_SMEM and plan.grid[1] <= MAX_GRID_Y:
+            return plan
+    rows = BLOCK_ROWS // K * K if K <= BLOCK_ROWS else K
+    return block_plan(-(-B // (rows // K)), rows, H, rows * (Vp + 6))  # logits and 6 per-row arrays
 
 
 def beam_step_plain(h, w_out, b_out, scores, finished, tokens, tok_hist, par_hist, t: int, K: int,
@@ -136,21 +172,21 @@ def beam_step(h, w_out, b_out, scores, finished, tokens, tok_hist, par_hist, t: 
         raise ValueError(f"beam_step: step {t} outside 0..{T - 1} or pad_id {pad_id} outside the vocab")
     if h_dst.data_ptr() == h_src.data_ptr() or c_dst.data_ptr() == c_src.data_ptr():
         raise ValueError("beam_step: the carries are gathered out of place (dst must not alias src)")
-    lib = _build.lib()
-    n_scratch = lib.i2l_beam_step_scratch(N // K, K, H, Vp)  # 0 where shared memory holds a block's logits
-    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=h.device) if n_scratch else None
-    err = lib.i2l_beam_step(
+    plan = beam_plan(N // K, K, H, Vp, dtype)
+    scratch = (torch.empty((plan.scratch_floats,), dtype=torch.float32, device=h.device)
+               if plan.scratch_floats else None)
+    err = _build.lib().i2l_beam_step(
         h.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), scores.data_ptr(), finished.data_ptr(),
         tokens.data_ptr(), tok_hist.data_ptr(), par_hist.data_ptr(), h_src.data_ptr(),
         h_dst.data_ptr(), c_src.data_ptr(), c_dst.data_ptr(),
         None if scratch is None else scratch.data_ptr(), L, N // K, K, H, Vp, t, end_id,
-        pad_id, _DTYPES[dtype], torch.cuda.current_stream(h.device).cuda_stream,
+        pad_id, ROUTE_CODES[plan.route], _DTYPES[dtype], torch.cuda.current_stream(h.device).cuda_stream,
     )
     _build.check(err, "i2l_beam_step")
-    beam_step.launches += 1
+    _count_launch(beam_step, plan)
 
 
-beam_step.launches = 0
+beam_step.launches = beam_step.cluster_tc_launches = beam_step.block_launches = 0
 
 
 def _beam(layer_step, step_fn, packed: Dict[str, Any], ctx_of: ContextFn, B: int, K: int, device,

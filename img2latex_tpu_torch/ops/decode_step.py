@@ -36,12 +36,18 @@ row ``r % batch_tile`` of the tile seeded ``seed + r // batch_tile``; here
 one launch covers every row, and the tile only defines the random stream.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
-PyTorch version (``*_plain``) for CPU tensors.
+PyTorch version (``*_plain``) for CPU tensors.  The sampling step runs one
+of two kernels by route (:func:`sample_plan`): in bf16 the tensor-core
+kernel of ``csrc/sample_step_tc.cu`` (the product's columns split over a
+thread-block cluster, then a warp a row), otherwise the CUDA-core one of
+``csrc/sample_step.cu``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -251,6 +257,112 @@ vocab_argmax_step.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Routes of the steps that need a row's whole logits (sampling, beam search)
+# ---------------------------------------------------------------------------
+
+TILE_ROWS, TILE_COLS = 32, 64  # csrc/tile_mma.cuh: rows and columns of a block's product
+TILE_RING_BYTES = 55_296       # its cp.async ring (tile::kSmemBytes)
+SLICE_BYTES = 32 * 72 * 4      # a slice's float32 logits, rows padded to 72 (csrc/vocab_slices.cuh)
+MAX_CLUSTER = 8                # the portable cluster size
+MAX_GRID_Y = 65535
+SAMPLE_TC_MAX_VP = 1024        # csrc/sample_step_tc.cu: a row's keys in a warp's registers
+SAMPLE_TC_MAX_TOP_K = 64       # ... and the k passes a warp makes
+BLOCK_ROWS = 16                # csrc/block_logits.cuh: rows of a CUDA-core block's product
+BLOCK_MAX_SMEM = 226 * 1024    # the CUDA-core kernels' dynamic shared memory at most
+ROUTE_CODES = {"block": 0, "cluster_tc": 1}
+
+
+@dataclass(frozen=True)
+class StepPlan:
+    """How a sampling or beam step launches: ``route`` "cluster_tc" (the
+    bf16 tensor-core kernel, clusters of ``cluster`` blocks along x) or
+    "block" (the CUDA-core kernel, ``cluster`` 1); ``grid`` (x, y); ``rows``
+    a tile; ``smem_bytes`` of dynamic shared memory a block; and the floats
+    of device-memory scratch the block route needs where a block's work does
+    not fit its shared memory."""
+    route: str
+    grid: Tuple[int, int]
+    cluster: int
+    rows: int
+    smem_bytes: int
+    scratch_floats: int = 0
+
+
+def staged_floats(H: int) -> int:
+    """Floats of shared memory ``block_logits.cuh`` stages h and a W_out tile through."""
+    hp = _round_up(H, 32)
+    return (hp * 17 + 3) // 4 * 4 + 32 * 128
+
+
+def cluster_tc_plan(tiles: int, Vp: int, rows: int) -> StepPlan:
+    """The cluster launch of ``csrc/vocab_slices.cuh`` for ``tiles`` row
+    tiles: C = min(8, Vp / 64) blocks a cluster, each holding its slices'
+    logits beside the product's ring."""
+    n_slices = Vp // TILE_COLS
+    C = min(MAX_CLUSTER, n_slices)
+    smem = TILE_RING_BYTES + -(-n_slices // C) * SLICE_BYTES
+    return StepPlan("cluster_tc", (C, tiles), C, rows, smem)
+
+
+def block_plan(blocks: int, rows: int, H: int, work: int) -> StepPlan:
+    """The launch of a CUDA-core block kernel whose blocks each need
+    ``work`` floats beside ``block_logits.cuh``'s staging: in shared memory
+    where it fits, else in device-memory scratch."""
+    fits = 4 * (staged_floats(H) + work) <= BLOCK_MAX_SMEM
+    return StepPlan("block", (blocks, 1), 1, rows, 4 * (staged_floats(H) + (work if fits else 0)),
+                    0 if fits else blocks * work)
+
+
+def _check_plan_args(name: str, B: int, H: int, Vp: int, dtype: torch.dtype) -> None:
+    if B <= 0 or H <= 0 or Vp <= 0 or Vp % 128 or dtype not in _DTYPES:
+        raise ValueError(f"{name}: B={B}, H={H}, Vp={Vp} (a positive multiple of 128), dtype {dtype}")
+    if 4 * staged_floats(H) > BLOCK_MAX_SMEM:
+        raise ValueError(f"{name}: H={H} does not fit the CUDA-core kernel's staging")
+
+
+def sample_plan(B: int, H: int, Vp: int, top_k: int, dtype: torch.dtype, top_p: float = 0.0) -> StepPlan:
+    """The route of :func:`vocab_sample_step` for B rows of Vp columns:
+    bf16 takes the tensor-core cluster kernel where a row's Np keys fit a
+    warp's registers (Vp <= 1024) and its k passes cover top-k (top_k <= 64
+    or top_k >= Vp, which turns the filter off); float32 and the other bf16
+    shapes take the CUDA-core kernel, whose logits and sort keys go to
+    device-memory scratch where they do not fit its shared memory (top_p >
+    0 adds the keys).  At B = 512, Vp = 512: 8 x 16 = 128 blocks in clusters
+    of 8, against 32 blocks of 16 rows."""
+    _check_plan_args("sample_plan", B, H, Vp, dtype)
+    if top_k < 0:
+        raise ValueError(f"sample_plan: top_k {top_k}")
+    tiles = -(-B // TILE_ROWS)
+    if (dtype == torch.bfloat16 and Vp <= SAMPLE_TC_MAX_VP and (top_k <= SAMPLE_TC_MAX_TOP_K or top_k >= Vp)
+            and tiles <= MAX_GRID_Y):
+        return cluster_tc_plan(tiles, Vp, TILE_ROWS)
+    keys = 2 * BLOCK_ROWS * (1 << (Vp - 1).bit_length()) if top_p > 0.0 else 0  # 64-bit keys of Np columns
+    return block_plan(-(-B // BLOCK_ROWS), BLOCK_ROWS, H, BLOCK_ROWS * Vp + keys)
+
+
+def launch_shape(name: str, *args) -> Optional[StepPlan]:
+    """The launch the library computes for ``name`` ("sample": B, H, Vp,
+    top_k, top_p_on, route code; "beam": B, K, H, Vp, route code), as a
+    :class:`StepPlan`, or None where it refuses the route (needs the
+    library, so the card's machine)."""
+    dims = (ctypes.c_longlong * 5)()
+    fn = _build.lib().i2l_sample_launch_shape if name == "sample" else _build.lib().i2l_beam_launch_shape
+    smem = fn(*args, dims)
+    if smem < 0:
+        return None
+    route = "cluster_tc" if args[-1] == ROUTE_CODES["cluster_tc"] else "block"
+    return StepPlan(route, (dims[0], dims[1]), dims[2], dims[3], smem, dims[4])
+
+
+def _count_launch(wrapper, plan: StepPlan) -> None:
+    wrapper.launches += 1
+    if plan.route == "cluster_tc":
+        wrapper.cluster_tc_launches += 1
+    else:
+        wrapper.block_launches += 1
+
+
+# ---------------------------------------------------------------------------
 # Kernel 2c: vocab product + temperature, top-k, top-p and the draw
 # ---------------------------------------------------------------------------
 
@@ -426,22 +538,22 @@ def vocab_sample_step(h, w_out, b_out, tokens, finished, out, t: int, end_id: in
     T = 1 if out is None else out.shape[1]
     if not 0 <= t < T:
         raise ValueError(f"vocab_sample_step: step {t} outside 0..{T - 1}")
-    lib = _build.lib()
-    n_scratch = lib.i2l_vocab_sample_step_scratch(B, H, Vp, int(top_p > 0.0))
-    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=h.device) if n_scratch else None
+    plan = sample_plan(B, H, Vp, int(top_k), h.dtype, float(top_p))
+    scratch = (torch.empty((plan.scratch_floats,), dtype=torch.float32, device=h.device)
+               if plan.scratch_floats else None)
     seed32 = (int(seed) + (1 << 31)) % (1 << 32) - (1 << 31)  # the uint32 bits as a C int
-    err = lib.i2l_vocab_sample_step(
+    err = _build.lib().i2l_vocab_sample_step(
         h.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), tokens.data_ptr(),
         None if finished is None else finished.data_ptr(), None if out is None else out.data_ptr(),
         None if scratch is None else scratch.data_ptr(), t, T, B, H, Vp, end_id, pad_id, seed32,
-        int(top_k), float(top_p), int(batch_tile), _DTYPES[h.dtype],
+        int(top_k), float(top_p), int(batch_tile), ROUTE_CODES[plan.route], _DTYPES[h.dtype],
         torch.cuda.current_stream(h.device).cuda_stream,
     )
     _build.check(err, "i2l_vocab_sample_step")
-    vocab_sample_step.launches += 1
+    _count_launch(vocab_sample_step, plan)
 
 
-vocab_sample_step.launches = 0
+vocab_sample_step.launches = vocab_sample_step.cluster_tc_launches = vocab_sample_step.block_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,11 @@ argmax kernel at H = 384 and 512 with every signal, ragged rows, Vp = 128 and
 640, and exact ties across lanes, warps, slices and cluster ranks), with an
 odd H, and with an input 2 bytes past an aligned address; the attention
 kernel with a block a memory row at rows_per_mem 1, 5 and 17, long memories
-read in tiles, and widths that are not whole 16-byte groups.
+read in tiles, and widths that are not whole 16-byte groups; the bf16
+sampling and beam steps' cluster kernels (ragged B, K 1 to 32, Vp 128 to
+640, top-k 1 to 64 and past the vocab, top-p 1, samples with fewer than K
+totals above -1e30, 20 repeats bit for bit), the bf16 shapes left to the
+block kernels, and each step's planner against the library's launch.
 Marked ``cuda``: without a CUDA device every test skips.  Imports no JAX, so
 it runs on the card's machine with
 
@@ -1038,3 +1042,163 @@ def test_attend_step_launch_shape(dev):
     assert tuple(dims) == (512, 1, 100) and smem <= 56 * 1024
     smem = _build.lib().i2l_attend_launch_shape(2560, 100, 256, 384, 5, 1, dims)
     assert tuple(dims) == (512, 5, 100) and smem <= 75 * 1024
+
+
+# ---- the bf16 sampling and beam steps on the tensor cores, clusters over the columns -----------
+
+
+def _plans_agree(plan, shape):
+    assert shape is not None and plan == shape, (plan, shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H", [(1, 384), (17, 512), (512, 384), (512, 512), (3, 33)])
+@pytest.mark.parametrize("Vp", [128, 384, 512, 640, 1152, 4096])
+def test_sample_plan_matches_the_library(dev, dtype, B, H, Vp):
+    """sample_plan names the launch the library computes (grid, cluster, rows a tile, shared
+    memory, scratch) for each top-k and top-p setting, and the library refuses the cluster route
+    wherever the plan takes the block route in bf16."""
+    for top_k in (0, 1, 10, 64, 65, 1000):
+        for top_p in (0.0, 0.9):
+            if top_k == 0 and top_p == 0.0:
+                continue
+            plan = ds.sample_plan(B, H, Vp, top_k, dtype, top_p)
+            code = ds.ROUTE_CODES[plan.route]
+            _plans_agree(plan, ds.launch_shape("sample", B, H, Vp, top_k, int(top_p > 0), code))
+            if dtype == torch.bfloat16 and plan.route == "block":
+                assert ds.launch_shape("sample", B, H, Vp, top_k, int(top_p > 0), 1) is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H", [(1, 384), (7, 512), (512, 384), (512, 512), (3, 33)])
+@pytest.mark.parametrize("Vp", [128, 512, 640, 4096])
+def test_beam_plan_matches_the_library(dev, dtype, B, H, Vp):
+    """beam_plan names the library's launch for K in 1, 5, 6, 20, 32, 33 and 120."""
+    for K in (1, 5, 6, 20, 32, 33, 120):
+        plan = bd.beam_plan(B, K, H, Vp, dtype)
+        _plans_agree(plan, ds.launch_shape("beam", B, K, H, Vp, ds.ROUTE_CODES[plan.route]))
+        if dtype == torch.bfloat16 and plan.route == "block":
+            assert ds.launch_shape("beam", B, K, H, Vp, 1) is None
+
+
+@pytest.mark.parametrize("B,H,Vp", [(512, 384, 512), (512, 512, 512), (1, 40, 128), (33, 64, 128),
+                                    (70, 96, 640), (31, 33, 384)])
+@pytest.mark.parametrize("kw", [dict(top_k=1), dict(top_k=10), dict(top_k=64), dict(top_k=1000),
+                                dict(top_p=1.0), dict(top_p=0.9), dict(top_k=10, top_p=0.9),
+                                dict(top_k=64, top_p=0.3, batch_tile=7)])
+def test_vocab_sample_step_tc(dev, B, H, Vp, kw):
+    """The bf16 cluster kernel (the route sample_plan names for every shape here): ragged B, one
+    row, Vp = 128 (a cluster of 2), 384 (6) and 640 (10 slices over 8 ranks), an unaligned H (the
+    guarded loader), top-k 1, 10, 64 and past the vocab, top-p 1.0, several tiles of the random
+    stream.  It draws the plain version's tokens except where the plain version is within a
+    rounding step of a knife edge (the float32 limits of test_vocab_sample_step)."""
+    h, w_out, b_out = _sample_operands(dev, torch.bfloat16, B, H, Vp, Vp - 7, B + Vp + H)
+    assert ds.sample_plan(B, H, Vp, kw.get("top_k", 0), torch.bfloat16, kw.get("top_p", 0.0)).route == "cluster_tc"
+    fin0 = torch.from_numpy((np.arange(B) % 5 == 4).astype(np.int32)).to(dev)
+    kw = dict(seed=11, **kw)
+    n0 = ds.vocab_sample_step.cluster_tc_launches
+    tk, fk, ok = _run_sample_step(ds.vocab_sample_step, h, w_out, b_out, fin0, **kw)
+    assert ds.vocab_sample_step.cluster_tc_launches == n0 + 1
+    gaps, mass = torch.full((B, 5), float("inf"), device=dev), torch.full((B, 5), float("inf"), device=dev)
+    tp, fp, op = _run_sample_step(ds.vocab_sample_step_plain, h, w_out, b_out, fin0, gaps=gaps, mass_gaps=mass,
+                                  **kw)
+    edge = (gaps[:, 2] <= 1e-4) | (mass[:, 2] <= 1e-5)
+    assert ((tk == tp) | edge).all() and int((tk != tp).sum()) <= max(1, B // 20)
+    assert torch.equal(fk, torch.maximum(fin0, (tk == 2).int())) and torch.equal(ok[:, 2], tk)
+    assert (ok[:, [0, 1, 3, 4]] == -1).all()
+    assert (tk[fin0 == 1] == 0).all() and (tk[fin0 == 0] < Vp - 7).all()
+    assert tk[0] == 3  # all the mass on one token
+
+
+@pytest.mark.parametrize("B,Vp,kw", [(40, 2048, dict(top_k=10, top_p=0.9)), (40, 512, dict(top_k=65)),
+                                     (40, 512, dict(top_k=200, top_p=0.9))])
+def test_vocab_sample_step_bf16_block_route(dev, B, Vp, kw):
+    """The bf16 shapes left to the CUDA-core kernel (Vp above 1024; 64 < top_k < Vp) take it,
+    and draw the plain version's tokens but at a knife edge."""
+    H = 64
+    h, w_out, b_out = _sample_operands(dev, torch.bfloat16, B, H, Vp, Vp - 7, Vp + 1)
+    assert ds.sample_plan(B, H, Vp, kw["top_k"], torch.bfloat16, kw.get("top_p", 0.0)).route == "block"
+    fin0 = torch.zeros(B, dtype=torch.int32, device=dev)
+    n0 = ds.vocab_sample_step.block_launches
+    tk, _, _ = _run_sample_step(ds.vocab_sample_step, h, w_out, b_out, fin0, seed=5, **kw)
+    assert ds.vocab_sample_step.block_launches == n0 + 1
+    gaps, mass = torch.full((B, 5), float("inf"), device=dev), torch.full((B, 5), float("inf"), device=dev)
+    tp, _, _ = _run_sample_step(ds.vocab_sample_step_plain, h, w_out, b_out, fin0, gaps=gaps, mass_gaps=mass,
+                                seed=5, **kw)
+    edge = (gaps[:, 2] <= 1e-4) | (mass[:, 2] <= 1e-5)
+    assert ((tk == tp) | edge).all()
+
+
+def _dead_beams(op, K):
+    """Samples with fewer than K totals above -1e30, where the reference's passes pick its lowest
+    flat index at -1e30 again: (0) every beam finished, beams 1.. at score -1e30; (1) no beam
+    finished, all at -1e30; (2) every beam finished at -2e30, so no total reaches -1e30 and the
+    first pass takes the largest, later ones that index again; (3) K - 1 finished beams at -1e30
+    and one live beam."""
+    scores, fin = op["scores"].view(-1, K), op["fin"].view(-1, K)
+    B = scores.shape[0]
+    for b in range(B):
+        case = b % 5
+        if case == 0:
+            fin[b] = 1
+            scores[b, 1:] = -1e30
+        elif case == 1:
+            fin[b] = 0
+            scores[b] = -1e30
+        elif case == 2:
+            fin[b] = 1
+            scores[b] = -2e30
+        elif case == 3:
+            fin[b] = 1
+            fin[b, 0] = 0
+            scores[b, 1:] = -1e30
+
+
+@pytest.mark.parametrize("B,K,H,Vp,L", [(512, 5, 384, 512, 2), (512, 5, 512, 512, 2), (7, 1, 40, 128, 1),
+                                        (11, 5, 96, 512, 2), (9, 6, 64, 640, 2), (3, 32, 48, 256, 1),
+                                        (4, 20, 33, 384, 2), (2, 33, 40, 128, 1), (13, 3, 48, 128, 2)])
+@pytest.mark.parametrize("case", ["random", "tie", "all_finished", "dead"])
+def test_beam_step_tc(dev, B, K, H, Vp, L, case):
+    """bf16 at the main path's shapes (B = 512 samples of 5 beams, H = 384 and 512) and ragged
+    ones: K = 1 (32 samples a tile), 5, 6 (5 samples, 30 rows), 32 (a tile a sample), 20 at an
+    unaligned H, 33 (the CUDA-core kernel: beam_plan's block route), Vp 128 to 640 (clusters of 2
+    to 8, 10 slices over 8 ranks), exact ties across beams, every row finished, and samples with
+    fewer than K totals above -1e30 ("dead": the reference's repeated picks).  Tokens, parents,
+    finished and the gathered carries equal the plain version's, scores within 1e-5."""
+    op = _beam_operands(dev, torch.bfloat16, B, K, H, Vp, L, B * K + H + Vp, tie=case == "tie",
+                        all_finished=case == "all_finished")
+    if case == "dead":
+        _dead_beams(op, K)
+    route = bd.beam_plan(B, K, H, Vp, torch.bfloat16).route
+    assert route == ("block" if K > 32 else "cluster_tc")
+    n0 = getattr(bd.beam_step, f"{route}_launches")
+    got = _run_beam_step(bd.beam_step, op, K)
+    assert getattr(bd.beam_step, f"{route}_launches") == n0 + 1
+    ref = _run_beam_step(bd.beam_step_plain, op, K)
+    for name in ("fin", "tokens", "tok_hist", "par_hist", "h_dst", "c_dst"):
+        assert torch.equal(got[name], ref[name]), name
+    torch.testing.assert_close(got["scores"], ref["scores"], atol=1e-5, rtol=1e-6)
+    if case == "dead":
+        par = got["par_hist"][1].view(B, K)
+        assert (par[0::5] == 0).all()  # sample case 0: beam 0's PAD, then the same pick again
+
+
+@pytest.mark.parametrize("which", ["sample", "beam"])
+def test_tc_steps_repeat_bit_for_bit(dev, which):
+    """20 launches of each bf16 cluster kernel at the main path's shapes give the same outputs
+    bit for bit (a missing barrier or fence between the cluster's blocks shows as a difference)."""
+    runs = []
+    if which == "sample":
+        B, H, Vp = 512, 384, 512
+        h, w_out, b_out = _sample_operands(dev, torch.bfloat16, B, H, Vp, 503, 3)
+        fin0 = torch.from_numpy((np.arange(B) % 7 == 6).astype(np.int32)).to(dev)
+        for _ in range(20):
+            runs.append(_run_sample_step(ds.vocab_sample_step, h, w_out, b_out, fin0, seed=9, top_k=10, top_p=0.9))
+    else:
+        B, K, H, Vp = 512, 5, 384, 512
+        op = _beam_operands(dev, torch.bfloat16, B, K, H, Vp, 2, 4)
+        for _ in range(20):
+            out = _run_beam_step(bd.beam_step, op, K)
+            runs.append(tuple(out[k] for k in ("scores", "fin", "tokens", "tok_hist", "par_hist", "h_dst", "c_dst")))
+    for r in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(r, runs[0]))
