@@ -36,9 +36,13 @@ a train step on the chain against the plain path, and phase 16's checkpoint
 loaded with ``use_pallas_chain=True``.
 
 The bf16 ``lstm_layer_step``, ``vocab_argmax_step``, attention ``h @ W_h``,
-conv-pool, ``vocab_sample_step`` and ``beam_step`` kernels run on the tensor
-cores (``mma.sync``): the build's SASS must hold HMMA instructions in each of
-their instantiations (where the toolkit has ``cuobjdump``); the bf16 vocab,
+conv-pool, ``vocab_sample_step``, ``beam_step`` and conv1-pool kernels run on
+the tensor cores (``mma.sync``): the build's SASS must hold HMMA instructions
+in each of their instantiations (where the toolkit has ``cuobjdump``); the
+conv1-pool tensor-core route is held in both layouts at the main and odd
+shapes, beside a broken variant that must fail its rule, timed beside the
+CUDA-core kernel it replaces (``core_route``), and every bf16 path must
+launch it (``conv1_pool.tc_launches``); the bf16 vocab,
 sampling and beam kernels must spread the batch over clusters of at least 64
 blocks, as their planners name them, and the attention take a block a memory
 row (``check_launch_shapes``); the sampling and beam steps are held and timed
@@ -353,7 +357,7 @@ def card_line() -> str:
 # must hold HMMA (mma.sync) or HGMMA (wgmma) instructions.
 TENSOR_CORE_KERNELS = ("lstm_layer_step_tc_kernel", "conv_pool_tc_kernel", "vocab_argmax_step_tc_kernel",
                        "attend_hw_tc_kernel", "lstm_seq_fwd_tc_kernel", "lstm_seq_bwd_tc_kernel", "lstm_seq_dw_tc_kernel",
-                       "vocab_sample_step_tc_kernel", "beam_step_tc_kernel")
+                       "vocab_sample_step_tc_kernel", "beam_step_tc_kernel", "conv1_pool_tc_kernel")
 
 
 def sass_mma_counts(lib_path):
@@ -383,11 +387,17 @@ def check_tensor_core_build(lib_path) -> None:
     tensor-core instruction count (from its SASS); fail if a redesigned
     kernel is missing or has no HMMA / HGMMA.  Their registers and spills
     are among the ptxas lines that main logs."""
+    import torch
+
     from img2latex_tpu_torch.ops import _build
+    from img2latex_tpu_torch.ops import conv1_phase as c1
 
     dims = (ctypes.c_int * 3)()
     ldims = (ctypes.c_longlong * 5)()
-    log(f"dynamic shared memory a block: lstm_layer_step_tc_kernel {_build.lib().i2l_lstm_tc_smem_bytes()} bytes, "
+    rows = c1.conv1_plan(BATCH, IMG_H, IMG_W, FILTERS[0], torch.bfloat16).rows
+    conv1 = c1.tc_launch_shape(BATCH, IMG_H, IMG_W, FILTERS[0], rows).smem_bytes
+    log(f"dynamic shared memory a block: conv1_pool_tc_kernel {conv1} bytes (a band of {rows} pooled rows at "
+        f"W = {IMG_W}), lstm_layer_step_tc_kernel {_build.lib().i2l_lstm_tc_smem_bytes()} bytes, "
         f"conv_pool_tc_kernel {_build.lib().i2l_conv_tc_smem_bytes()} bytes, vocab_argmax_step_tc_kernel "
         f"{_build.lib().i2l_vocab_tc_launch_shape(BATCH, 512, dims)} bytes, vocab_sample_step_tc_kernel "
         f"{_build.lib().i2l_sample_launch_shape(BATCH, GRID_HIDDEN, 512, SAMPLE['top_k'], 1, 1, ldims)} bytes, "
@@ -435,6 +445,12 @@ def check_launch_shapes() -> None:
         check(plan == shape and plan.route == "cluster_tc", f"{what}: the planner and the library disagree")
         check(plan.grid[0] * plan.grid[1] >= 64 and plan.cluster > 1,
               f"{what}: the bf16 launch is not split over clusters of >= 64 blocks")
+    from img2latex_tpu_torch.ops import conv1_phase as c1
+
+    plan = c1.conv1_plan(BATCH, IMG_H, IMG_W, FILTERS[0], torch.bfloat16)
+    shape = c1.tc_launch_shape(BATCH, IMG_H, IMG_W, FILTERS[0], plan.rows)
+    log(f"conv1_pool_tc_kernel at ({BATCH}, {IMG_H}, {IMG_W}) -> {FILTERS[0]}: planner {plan}, library {shape}")
+    check(plan == shape and plan.route == "tc", "conv1_pool: the planner and the library disagree")
     for rows, k in ((BATCH, 1), (BATCH * BEAM, BEAM)):
         smem = lib.i2l_attend_launch_shape(rows, GRID_S, GRID_EMBED, GRID_HIDDEN, k, 1, dims)
         blocks, group, tile = tuple(dims)
@@ -773,7 +789,8 @@ def phase_grid_end_to_end(dev, card, gcfg, gmodel, tokenizer, images, kernels) -
     pred = Predictor(gcfg, gmodel, tokenizer, batch_size=BATCH)
     pred.predict_batch(images[:BATCH], return_ids=True)  # warm-up (cuDNN plans, packing)
     torch.cuda.synchronize()
-    conv1_pool.launches = attend_step.launches = lstm_layer_step.launches = vocab_argmax_step.launches = 0
+    conv1_pool.launches = conv1_pool.tc_launches = attend_step.launches = lstm_layer_step.launches = 0
+    vocab_argmax_step.launches = 0
     t0 = time.perf_counter()
     ids = pred.predict_batch(images, return_ids=True)
     torch.cuda.synchronize()
@@ -785,6 +802,7 @@ def phase_grid_end_to_end(dev, card, gcfg, gmodel, tokenizer, images, kernels) -
         f"launches {json.dumps(launches)}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the grid path")
+    check(conv1_pool.tc_launches == launches["conv1_pool"], "the grid path ran conv1_pool off the tensor-core route")
     kernels["attend_step"]["launches"] = launches["attend_step"]
     check(len(ids) == N_IMAGES and all(len(r) <= MAX_LEN for r in ids), "grid predict_batch output")
     check(all(tokenizer.end_token_id not in r and all(0 <= t < VOCAB for t in r) for r in ids),
@@ -1312,13 +1330,14 @@ def phase_grid_beam_end_to_end(dev, card, gcfg, gmodel, tokenizer, images, kerne
             torch.cuda.synchronize()
             for k in counters:
                 k.launches = 0
-            beam_step.cluster_tc_launches = 0
+            beam_step.cluster_tc_launches = conv1_pool.tc_launches = 0
             t0 = time.perf_counter()
             ids = pred.predict_batch(images, return_ids=True, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {k.__name__: k.launches for k in counters}
             launches["beam_step.cluster_tc"] = beam_step.cluster_tc_launches
+            launches["conv1_pool.tc"] = conv1_pool.tc_launches
             log(f"grid predict_batch, {mode} (K={BEAM}, length_penalty={LENGTH_PENALTY}"
                 f"{', frac ' + str(SELECTIVE_FRAC) + ', signal margin' if mode == 'selective' else ''}): "
                 f"{N_IMAGES} images in {wall:.3f} s = {N_IMAGES / wall:.1f} images/s (batch {BATCH}, bf16, card {card}); "
@@ -1328,6 +1347,8 @@ def phase_grid_beam_end_to_end(dev, card, gcfg, gmodel, tokenizer, images, kerne
                 check(launches[name] > 0, f"kernel {name} was not launched on the grid {mode} path")
             check(launches["beam_step.cluster_tc"] == launches["beam_step"],
                   f"the grid {mode} path ran beam_step off the tensor-core route")
+            check(launches["conv1_pool.tc"] == launches["conv1_pool"],
+                  f"the grid {mode} path ran conv1_pool off the tensor-core route")
             check(len(ids) == N_IMAGES and all(len(r) <= MAX_LEN for r in ids), f"grid {mode} predict_batch output")
             check(all(tokenizer.end_token_id not in r and all(0 <= t < VOCAB for t in r) for r in ids),
                   f"grid {mode} trimmed ids")
@@ -1701,13 +1722,14 @@ def phase_grid_sample_end_to_end(dev, card, gcfg, gmodel, tokenizer, images, ker
     counters = (conv1_pool, attend_step, lstm_layer_step, vocab_sample_step, vocab_argmax_step)
     for k in counters:
         k.launches = 0
-    vocab_sample_step.cluster_tc_launches = 0
+    vocab_sample_step.cluster_tc_launches = conv1_pool.tc_launches = 0
     t0 = time.perf_counter()
     ids = pred.predict_batch(images, return_ids=True, seed=SAMPLE_SEED, **SAMPLE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in counters}
     launches["vocab_sample_step.cluster_tc"] = vocab_sample_step.cluster_tc_launches
+    launches["conv1_pool.tc"] = conv1_pool.tc_launches
     log(f"grid predict_batch, sampling {json.dumps(SAMPLE)}: {N_IMAGES} images in {wall:.3f} s = "
         f"{N_IMAGES / wall:.1f} images/s (batch {BATCH}, bf16, card {card}); launches {json.dumps(launches)}")
     for name in ("conv1_pool", "attend_step", "lstm_layer_step", "vocab_sample_step"):
@@ -1715,6 +1737,7 @@ def phase_grid_sample_end_to_end(dev, card, gcfg, gmodel, tokenizer, images, ker
     check(launches["vocab_argmax_step"] == 0, "the sampling path launched the argmax kernel")
     check(launches["vocab_sample_step.cluster_tc"] == launches["vocab_sample_step"],
           "the grid sampling path ran vocab_sample_step off the tensor-core route")
+    check(launches["conv1_pool.tc"] == launches["conv1_pool"], "the grid sampling path ran conv1_pool off the tensor-core route")
     kernels["vocab_sample_step"]["launches"] = launches["vocab_sample_step"]
     check(len(ids) == N_IMAGES and all(len(r) <= MAX_LEN for r in ids), "grid sampling predict_batch output")
     check(all(tokenizer.end_token_id not in r and all(0 <= t < VOCAB for t in r) for r in ids),
@@ -1867,6 +1890,22 @@ def block_route():
         yield
     finally:
         ds.sample_plan, bd.beam_plan = saved
+
+
+@contextlib.contextmanager
+def core_route():
+    """Run bf16 conv1_pool by the CUDA-core kernel (``conv1_plan`` names the route it names for
+    float32), for the before-and-after in one run."""
+    import torch
+
+    from img2latex_tpu_torch.ops import conv1_phase as c1
+
+    saved = c1.conv1_plan
+    c1.conv1_plan = lambda B, H, W, Cout, dtype: saved(B, H, W, Cout, torch.float32)
+    try:
+        yield
+    finally:
+        c1.conv1_plan = saved
 
 
 def rel_err(got, ref) -> float:
@@ -2218,14 +2257,15 @@ def _time_train_step(what: str, card: str, step, state, dbatch, steps: int) -> N
     for fn, names in counters:
         for n in names:
             setattr(fn, n, 0)
-    conv1_pool.launches = conv1_pool.backward_calls = 0
+    conv1_pool.launches = conv1_pool.tc_launches = conv1_pool.backward_calls = 0
     t0 = time.perf_counter()
     for _ in range(steps):
         m = step(state, dbatch)
     loss = m["loss"].item()  # waits for the card
     ms = (time.perf_counter() - t0) * 1e3 / steps
     per_step = {f"{fn.__name__}.{n}": getattr(fn, n) / steps for fn, names in counters for n in names}
-    per_step.update({"conv1_pool": conv1_pool.launches / steps, "conv1_pool_bwd": conv1_pool.backward_calls / steps})
+    per_step.update({"conv1_pool": conv1_pool.launches / steps, "conv1_pool.tc": conv1_pool.tc_launches / steps,
+                     "conv1_pool_bwd": conv1_pool.backward_calls / steps})
     log(f"train step, {what} (vector, bf16, B={TRAIN_BATCH}): {ms:.2f} ms a step over {steps} steps = "
         f"{TRAIN_BATCH * 1e3 / ms:.1f} images/s, last loss {loss:.4f}; launches a step {json.dumps(per_step)} [{card}]")
     check(np.isfinite(loss), "train step: non-finite loss")
@@ -2303,13 +2343,15 @@ def phase_trainer(dev, card: str, cfg, tokenizer, kernels: dict, tmp: str, epoch
     before = trainer.eval_step(trainer.state, batch)["loss"].item()
     torch.cuda.synchronize()
     lstm_seq_fwd.launches = lstm_seq_bwd.launches = conv1_pool.launches = conv1_pool.backward_calls = 0
+    conv1_pool.tc_launches = 0
     lstm_seq_fwd.persistent_launches = lstm_seq_bwd.persistent_launches = lstm_seq_bwd.dw_launches = 0
     t0 = time.perf_counter()
     result = trainer.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"lstm_seq_fwd": lstm_seq_fwd.launches, "lstm_seq_bwd": lstm_seq_bwd.launches,
-                "conv1_pool": conv1_pool.launches, "conv1_pool_bwd": conv1_pool.backward_calls,
+                "conv1_pool": conv1_pool.launches, "conv1_pool.tc": conv1_pool.tc_launches,
+                "conv1_pool_bwd": conv1_pool.backward_calls,
                 "lstm_seq_fwd.persistent": lstm_seq_fwd.persistent_launches,
                 "lstm_seq_bwd.persistent": lstm_seq_bwd.persistent_launches,
                 "lstm_seq_bwd.dw_hh": lstm_seq_bwd.dw_launches}
@@ -2325,6 +2367,7 @@ def phase_trainer(dev, card: str, cfg, tokenizer, kernels: dict, tmp: str, epoch
         check(launches[name] > 0, f"{name} was not run on the training path")
         kernels[name]["launches"] = launches[name]
     check(launches["conv1_pool"] > 0, "conv1_pool was not launched on the training path")
+    check(launches["conv1_pool.tc"] == launches["conv1_pool"], "the training path ran conv1_pool off the tensor-core route")
     for name in ("lstm_seq_fwd.persistent", "lstm_seq_bwd.persistent", "lstm_seq_bwd.dw_hh"):
         check(launches[name] > 0, f"{name} was not launched on the training path")
     check(all(np.isfinite(losses + val)), "Trainer: non-finite loss")
@@ -2398,7 +2441,8 @@ def _conv_errors(got, ref):
     return d.max().item(), over, (d == 0).float().mean().item()
 
 
-def _check_conv(what: str, got, ref, dtype: str) -> float:
+def _conv_verdict(what: str, got, ref, dtype: str):
+    """(ok, max abs err) of a conv-pool kernel's output against its plain version's, logged."""
     err, over, equal = _conv_errors(got, ref)
     scale = max(ref.float().abs().max().item(), 1.0)
     if dtype == "float32":
@@ -2408,9 +2452,76 @@ def _check_conv(what: str, got, ref, dtype: str) -> float:
         ok = over <= CONV_F32_ATOL and equal >= CHAIN_BF16_EQUAL
         log(f"{what} bf16: max abs err {err:.3g}, beyond one bf16 step {over:.3g} (tol {CONV_F32_ATOL}), "
             f"equal {equal:.4f} (floor {CHAIN_BF16_EQUAL})")
+    return ok, err
+
+
+def _check_conv(what: str, got, ref, dtype: str) -> float:
+    ok, err = _conv_verdict(what, got, ref, dtype)
     check(ok, f"{what} {dtype} disagrees with its plain version")
     check(bool(got.float().isfinite().all().item()), f"{what} {dtype}: non-finite output")
     return err
+
+
+# conv1_pool's bf16 tensor-core route (csrc/conv1_pool_tc.cu) beside the main shape: (B, H, W, Cout)
+# with Cout 8, 40 (a chunk of 32 channels and one of 8) and 128 (four chunks), H / 2 = 5, 7 and 3
+# (not multiples of the 4-row band) and W / 2 = 17, 24 and 150 (not multiples of 16).
+CONV1_ODD = ((5, 10, 34, 8), (5, 14, 48, 40), (3, 6, 300, 128))
+
+
+def _broken_conv1_pool(mode: str):
+    """conv1_pool through the tensor-core kernel with its bias dropped, or its packed taps shifted
+    by one column: each must fail the conv rule."""
+    import torch
+
+    from img2latex_tpu_torch.ops import conv1_phase as c1
+
+    def broken(x, weight, bias, layout):
+        plan = c1.conv1_plan(x.shape[0], x.shape[1], x.shape[2], weight.shape[0], x.dtype)
+        taps = c1.pack_conv1_taps(weight.to(x.dtype))
+        if mode == "bias dropped":
+            return c1.conv1_pool_launch(x, taps, torch.zeros_like(bias), layout, plan)
+        return c1.conv1_pool_launch(x, taps.roll(1, dims=1), bias, layout, plan)
+
+    return broken
+
+
+def phase_conv1_routes(dev) -> None:
+    """bf16 conv1_pool on its tensor-core route, in both layouts, at the main width (64 images)
+    and CONV1_ODD: within the conv rule of its plain version (one bf16 step, CHAIN_BF16_EQUAL of
+    the elements equal), the NHWC output the NCHW one transposed bit for bit; and the kernel with
+    its bias dropped or its taps shifted failing that rule."""
+    import torch
+
+    from img2latex_tpu_torch.ops import conv1_phase as c1
+    from img2latex_tpu_torch.ops.conv1_phase import conv1_pool, conv1_pool_plain
+    from img2latex_tpu_torch.ops.preprocess import normalize_images
+
+    rng = np.random.default_rng(SEED + 14)
+    shapes = ((64, IMG_H, IMG_W, FILTERS[0]),) + CONV1_ODD
+    with torch.no_grad():
+        for B, H, W, C in shapes:
+            u8 = rng.integers(0, 256, size=(B, H, W, 1), dtype=np.uint8)
+            x = normalize_images(torch.from_numpy(u8).to(dev), dtype=torch.bfloat16)
+            w = torch.from_numpy(rng.standard_normal((C, 1, 3, 3), dtype=np.float32) / 3.0).to(dev)
+            b = torch.from_numpy(rng.standard_normal(C, dtype=np.float32) * 0.1).to(dev)
+            what = f"conv1_pool ({B},{H},{W},1) -> {C}, bf16"
+            check(c1.conv1_plan(B, H, W, C, torch.bfloat16).route == "tc", f"{what}: not the tensor-core route")
+            got = {}
+            for layout in ("nchw", "nhwc"):
+                n0 = conv1_pool.tc_launches
+                got[layout] = conv1_pool(x, w, b, layout=layout)
+                check(conv1_pool.tc_launches == n0 + 1, f"{what} {layout}: conv1_pool_tc_kernel was not launched")
+                _check_conv(f"{what}, {layout}, tensor cores", got[layout], conv1_pool_plain(x, w, b, layout), "bfloat16")
+            check(torch.equal(got["nhwc"], got["nchw"].permute(0, 2, 3, 1)),
+                  f"{what}: the NHWC output is not the NCHW one transposed")
+            if C != FILTERS[0]:
+                continue
+            for mode in ("bias dropped", "taps shifted"):
+                for layout in ("nchw", "nhwc"):
+                    bad_ok, _ = _conv_verdict(f"{what}, {layout}, a broken kernel ({mode})",
+                                              _broken_conv1_pool(mode)(x, w, b, layout),
+                                              conv1_pool_plain(x, w, b, layout), "bfloat16")
+                    check(not bad_ok, f"{what}: a kernel with its {mode} passed the conv rule")
 
 
 def phase_chain_kernels(dev, rng, card: str, kernels: dict) -> None:
@@ -2496,7 +2607,7 @@ def phase_chain_kernels(dev, rng, card: str, kernels: dict) -> None:
         u8 = torch.from_numpy(rng.integers(0, 256, size=(BATCH, IMG_H, IMG_W, 1), dtype=np.uint8)).to(dev)
         w1 = torch.from_numpy(rng.standard_normal((FILTERS[0], 1, 3, 3), dtype=np.float32) / 3.0).to(dev)
         b1 = torch.from_numpy(rng.standard_normal(FILTERS[0], dtype=np.float32) * 0.1).to(dev)
-        err1 = 0.0
+        err1 = {}
         for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             x = normalize_images(u8[:64], dtype=dtype)
             got = conv1_pool(x, w1, b1, layout="nhwc")
@@ -2507,21 +2618,26 @@ def phase_chain_kernels(dev, rng, card: str, kernels: dict) -> None:
                         conv1_lane_relu_pool_plain(x, w1), name)
             check(torch.equal(got, conv1_pool(x, w1, b1, layout="nchw").permute(0, 2, 3, 1)),
                   f"conv1_pool {name}: the NHWC output is not the NCHW one transposed")
-            err1 = e if name == "float32" else err1
+            err1[name] = e
         xb = normalize_images(u8, dtype=torch.bfloat16)
         xcl = xb.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        ms_k = time_ms(lambda: conv1_pool(xb, w1, b1, layout="nhwc"))
-        ms_p = time_ms(lambda: conv1_pool_plain(xb, w1, b1, layout="nhwc"))
-        ms_l = time_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xcl, w1.to(torch.bfloat16), b1.to(torch.bfloat16),
-                                                              padding=1)), 2))
+        ms_k, ms_ke = both_ms(lambda: conv1_pool(xb, w1, b1, layout="nhwc"), iters=10)
+        with core_route():
+            ms_c, _ = both_ms(lambda: conv1_pool(xb, w1, b1, layout="nhwc"), iters=10)
+        ms_p, _ = both_ms(lambda: conv1_pool_plain(xb, w1, b1, layout="nhwc"), iters=10)
+        ms_l, _ = both_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xcl, w1.to(torch.bfloat16), b1.to(torch.bfloat16),
+                                                                 padding=1)), 2), iters=10)
         nbytes = xb.numel() * 2 + BATCH * FILTERS[0] * (IMG_H // 2) * (IMG_W // 2) * 2 + w1.numel() * 4 + b1.numel() * 4
         bnd, by1 = bound_ms(nbytes, 2 * 9 * FILTERS[0] * BATCH * IMG_H * IMG_W, "bfloat16")
-    log(f"conv1_pool[nhwc] ({BATCH},{IMG_H},{IMG_W},1) bf16: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+    log(f"conv1_pool[nhwc] ({BATCH},{IMG_H},{IMG_W},1) bf16, device time (CUDA graph): tensor-core kernel "
+        f"{ms_k:.4f} ms (eager {ms_ke:.4f}), the CUDA-core kernel it replaces {ms_c:.4f} ms, plain {ms_p:.4f} ms, "
         f"conv2d+relu+max_pool2d channels-last {ms_l:.4f} ms, bound {bnd:.4f} ms ({by1}) [{card}]")
     kernels["conv1_pool[nhwc]"] = dict(
-        name="conv1_pool[nhwc]", route="cuda", source="img2latex_tpu_torch/csrc/conv1_pool.cu",
-        replaces="img2latex_tpu/ops/pallas/conv1_lane.py:96", max_abs_err=err1,
-        ms=ms_k, plain_ms=ms_p, bound_ms=bnd, bound_by=by1, library_ms=ms_l)
+        name="conv1_pool[nhwc]", route="cuda", source="img2latex_tpu_torch/csrc/conv1_pool_tc.cu",
+        replaces="img2latex_tpu/ops/pallas/conv1_lane.py:96", max_abs_err=err1["float32"],
+        max_abs_err_bf16=err1["bfloat16"], plan_route="tc",
+        ms=ms_k, ms_eager=ms_ke, ms_cuda_core=ms_c, plain_ms=ms_p, bound_ms=bnd, bound_by=by1, library_ms=ms_l,
+        ms_method="cuda_graph")
 
 
 def chain_copy(cfg, model):
@@ -2619,12 +2735,14 @@ def phase_chain_end_to_end(dev, card: str, kind: str, cfg, model, tokenizer, ima
         torch.cuda.synchronize()
         for k in counted + (fused_conv_relu_pool,):
             k.launches = 0
-        conv1_pool.nhwc_launches = 0
+        conv1_pool.nhwc_launches = conv1_pool.tc_launches = 0
         t0 = time.perf_counter()
         ids = p.predict_batch(images, return_ids=True)
         torch.cuda.synchronize()
         speed.setdefault(label.strip(), []).append(N_IMAGES / (time.perf_counter() - t0))
         launches = {k.__name__: k.launches for k in counted}
+        check(conv1_pool.tc_launches == launches["conv1_pool"] > 0,
+              f"{kind} predict_batch ({label.strip()}) ran conv1_pool off the tensor-core route")
         if label.strip() == "chain on":
             on_launches = launches
             check(len(ids) == N_IMAGES and all(tokenizer.end_token_id not in r and all(0 <= t < VOCAB for t in r)
@@ -2864,35 +2982,44 @@ def main() -> int:
     xb_nchw = xb.permute(0, 3, 1, 2).contiguous()
     w1b, b1b = w1.to(torch.bfloat16), b1.to(torch.bfloat16)
     ms_k, ms_ke = both_ms(lambda: conv1_pool(xb, w1, b1), iters=10)
+    with core_route():
+        ms_c, _ = both_ms(lambda: conv1_pool(xb, w1, b1), iters=10)
     ms_p, _ = both_ms(lambda: conv1_pool_plain(xb, w1, b1), iters=10)
     ms_l, _ = both_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xb_nchw, w1b, b1b, padding=1)), 2), iters=10)
     nbytes = xb.numel() * 2 + BATCH * FILTERS[0] * (IMG_H // 2) * (IMG_W // 2) * 2 + w1.numel() * 4 + b1.numel() * 4
     flops = 2 * 9 * FILTERS[0] * BATCH * IMG_H * IMG_W
     bnd, by = bound_ms(nbytes, flops, "bfloat16")
-    log(f"conv1_pool ({BATCH},{IMG_H},{IMG_W},1) bf16: kernel {ms_k:.4f} ms (device, CUDA graph; eager {ms_ke:.4f}), "
-        f"plain {ms_p:.4f} ms, "
+    log(f"conv1_pool ({BATCH},{IMG_H},{IMG_W},1) bf16: tensor-core kernel {ms_k:.4f} ms (device, CUDA graph, the "
+        f"taps' packing included; eager {ms_ke:.4f}), the CUDA-core kernel it replaces {ms_c:.4f} ms, plain {ms_p:.4f} ms, "
         f"conv2d+relu+max_pool2d {ms_l:.4f} ms, bound {bnd:.4f} ms ({by}) [{card}]")
     kernels["conv1_pool"] = dict(
-        name="conv1_pool", route="cuda", source="img2latex_tpu_torch/csrc/conv1_pool.cu",
-        replaces="img2latex_tpu/ops/pallas/conv1_phase.py:208", max_abs_err=err32,
-        ms=ms_k, ms_eager=ms_ke, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=ms_l, ms_method="cuda_graph")
+        name="conv1_pool", route="cuda", source="img2latex_tpu_torch/csrc/conv1_pool_tc.cu",
+        replaces="img2latex_tpu/ops/pallas/conv1_phase.py:208", max_abs_err=err32, max_abs_err_bf16=err16, plan_route="tc",
+        ms=ms_k, ms_eager=ms_ke, ms_cuda_core=ms_c, plain_ms=ms_p, bound_ms=bnd, bound_by=by, library_ms=ms_l, ms_method="cuda_graph")
     # conv1_lane.py::conv1_lane_relu_pool is the same op without the bias: the
     # same kernel with a zero bias
     z1 = torch.zeros_like(b1)
     err0 = (conv1_pool(x32, w1, z1) - conv1_pool_plain(x32, w1, z1)).abs().max().item()
     check(err0 <= CONV_F32_ATOL, f"conv1 zero bias f32 max abs err {err0} > {CONV_F32_ATOL}")
+    err0_16 = _check_conv("conv1_pool, zero bias, (64,64,800,1)", conv1_pool(x16, w1, z1),
+                          conv1_pool_plain(x16, w1, z1), "bfloat16")
     ms_k0, ms_k0e = both_ms(lambda: conv1_pool(xb, w1, z1), iters=10)
+    with core_route():
+        ms_c0, _ = both_ms(lambda: conv1_pool(xb, w1, z1), iters=10)
     ms_p0, _ = both_ms(lambda: conv1_pool_plain(xb, w1, z1), iters=10)
     ms_l0, _ = both_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xb_nchw, w1b, None, padding=1)), 2), iters=10)
     bnd0, by0 = bound_ms(nbytes - b1.numel() * 4, flops, "bfloat16")
     log(f"conv1_pool, zero bias (conv1_lane_relu_pool): f32 max abs err {err0:.3g}; bf16 ({BATCH},{IMG_H},{IMG_W},1): "
-        f"kernel {ms_k0:.4f} ms, plain {ms_p0:.4f} ms, conv2d+relu+max_pool2d {ms_l0:.4f} ms, "
+        f"tensor-core kernel {ms_k0:.4f} ms, CUDA-core {ms_c0:.4f} ms, plain {ms_p0:.4f} ms, conv2d+relu+max_pool2d {ms_l0:.4f} ms, "
         f"bound {bnd0:.4f} ms ({by0}) [{card}]")
     kernels["conv1_pool[bias=0]"] = dict(
-        name="conv1_pool[bias=0]", route="cuda", source="img2latex_tpu_torch/csrc/conv1_pool.cu",
-        replaces="img2latex_tpu/ops/pallas/conv1_lane.py:96", max_abs_err=err0,
-        ms=ms_k0, ms_eager=ms_k0e, plain_ms=ms_p0, bound_ms=bnd0, bound_by=by0, library_ms=ms_l0,
+        name="conv1_pool[bias=0]", route="cuda", source="img2latex_tpu_torch/csrc/conv1_pool_tc.cu",
+        replaces="img2latex_tpu/ops/pallas/conv1_lane.py:96", max_abs_err=err0, max_abs_err_bf16=err0_16, plan_route="tc",
+        ms=ms_k0, ms_eager=ms_k0e, ms_cuda_core=ms_c0, plain_ms=ms_p0, bound_ms=bnd0, bound_by=by0, library_ms=ms_l0,
         ms_method="cuda_graph")
+
+    # the bf16 tensor-core route at the main and odd shapes, both layouts, and a broken kernel
+    phase_conv1_routes(dev)
 
     # ---- phase 3: kernel 2, the greedy decode kernels ----------------------
     cfg = Config()
@@ -2999,13 +3126,14 @@ def main() -> int:
     pred = Predictor(cfg, model, tokenizer, batch_size=BATCH)  # on the card: no device named
     pred.predict_batch(images[:BATCH], return_ids=True)  # warm-up (cuDNN plans, packing)
     torch.cuda.synchronize()
-    conv1_pool.launches = lstm_layer_step.launches = vocab_argmax_step.launches = 0
+    conv1_pool.launches = conv1_pool.tc_launches = lstm_layer_step.launches = vocab_argmax_step.launches = 0
     t0 = time.perf_counter()
     ids = pred.predict_batch(images, return_ids=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"conv1_pool": conv1_pool.launches, "lstm_layer_step": lstm_layer_step.launches,
                 "vocab_argmax_step": vocab_argmax_step.launches}
+    check(conv1_pool.tc_launches == launches["conv1_pool"], "the greedy path ran conv1_pool off the tensor-core route")
     log(f"predict_batch: {N_IMAGES} images in {wall:.3f} s = {N_IMAGES / wall:.1f} images/s "
         f"(batch {BATCH}, bf16, card {card}); launches {json.dumps(launches)}")
     for name, n in launches.items():
@@ -3118,11 +3246,16 @@ def main() -> int:
     # calls the host enqueues) or "cuda_graph" (device time, graph_ms; every
     # row under ~1 ms); the row's three times share it, except where
     # plain_ms_method says otherwise.  ms_eager: the kernel's eager time
-    # beside its device time.
+    # beside its device time.  plan_route: the route conv1_plan names at the
+    # row's shape ("tc"), else null; ms_cuda_core: the CUDA-core conv1-pool
+    # kernel's time at the same shape in this run (core_route), else null.
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "max_abs_err_bf16", "ms",
-            "ms_eager", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_method", "plain_ms_method", "parts")
+            "ms_eager", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_method", "plain_ms_method", "parts",
+            "plan_route", "ms_cuda_core")
     for n in order:
         kernels[n].setdefault("max_abs_err_bf16", None)
+        kernels[n].setdefault("plan_route", None)
+        kernels[n].setdefault("ms_cuda_core", None)
         kernels[n].setdefault("parts", None)
         kernels[n].setdefault("ms_method", "eager")
         kernels[n].setdefault("ms_eager", kernels[n]["ms"])

@@ -6,6 +6,10 @@
 // the pooled map is written: the full-resolution conv output never reaches device
 // memory.
 //
+// The CUDA-core kernel: float32 (the exactness oracle) and bf16 with Cout not a multiple of 8.
+// bf16 with Cout a multiple of 8 runs on the tensor cores (conv1_pool_tc.cu);
+// ops/conv1_phase.py::conv1_plan names the route.
+//
 // Layout: x (B, H, W) -- the NHWC input with its single channel -- in; out
 // (B, Cout, H/2, W/2) NCHW, the layout of the next block's conv2d and of the
 // channel-first chain, or (B, H/2, W/2, Cout) NHWC (a template parameter).

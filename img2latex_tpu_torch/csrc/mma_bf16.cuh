@@ -1,7 +1,7 @@
 // Tensor-core building blocks of the port's bf16 kernels (sm_80 and later PTX, built for sm_90a):
 // ldmatrix, mma.sync m16n8k16 with bf16 operands and float32 sums, and cp.async with its
 // commit/wait wrappers.  Included by greedy_decode.cu, grid_attend.cu (also through tile_mma.cuh),
-// conv_pool.cu, lstm_seq_tc.cu, and through tile_mma.cuh and vocab_slices.cuh by sample_step_tc.cu
+// conv_pool.cu, conv1_pool_tc.cu, lstm_seq_tc.cu, and through tile_mma.cuh and vocab_slices.cuh by sample_step_tc.cu
 // and beam_step_tc.cu.
 //
 // Fragment layout of mma.m16n8k16.row.col (PTX ISA, "Matrix Fragments for mma.m16n8k16"), for lane

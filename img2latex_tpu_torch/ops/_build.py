@@ -44,6 +44,10 @@ LLP = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     # x, taps, bias, out, B, H, W, Cout, nhwc, dtype, stream
     "i2l_conv1_pool": [P, P, P, P, I, I, I, I, I, I, P],
+    # x, packed taps, bias, out, B, H, W, Cout, nhwc, rows, stream (bf16)
+    "i2l_conv1_pool_tc": [P, P, P, P, I, I, I, I, I, I, P],
+    # B, H, W, Cout, rows, dims (grid x, grid y, threads) -> dynamic shared memory bytes, -1 if refused
+    "i2l_conv1_tc_launch_shape": [I] * 5 + [IP],
     # x, taps, bias (or null), out, B, Cin, H, W, Cout, nhwc, dtype, stream
     "i2l_conv_pool": [P] * 4 + [I] * 7 + [P],
     # tokens, emb, E0, x1, E1, h_in, w_ih, w_hh, b, c, h_out, B, H, dtype, stream

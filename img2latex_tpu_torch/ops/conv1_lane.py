@@ -1,9 +1,9 @@
 """Single-channel conv3x3 (SAME) + ReLU + maxpool 2x2, no bias, channels-last out.
 
 Replaces the TPU kernel ``img2latex_tpu/ops/pallas/conv1_lane.py::conv1_lane_relu_pool``
-(``pl.pallas_call`` at line 96): the conv1-pool kernel of ``csrc/conv1_pool.cu``
-(:mod:`img2latex_tpu_torch.ops.conv1_phase`) with a zero bias and its NHWC
-output.  :func:`conv1_lane_relu_pool_plain` is its plain PyTorch version.
+(``pl.pallas_call`` at line 96): the conv1-pool kernels (``csrc/conv1_pool_tc.cu``
+in bf16, ``csrc/conv1_pool.cu`` otherwise; :mod:`img2latex_tpu_torch.ops.conv1_phase`)
+with a zero bias and their NHWC output.  :func:`conv1_lane_relu_pool_plain` is its plain PyTorch version.
 Forward only, as the JAX function is (it has no VJP).
 """
 

@@ -27,7 +27,11 @@ read in tiles, and widths that are not whole 16-byte groups; the bf16
 sampling and beam steps' cluster kernels (ragged B, K 1 to 32, Vp 128 to
 640, top-k 1 to 64 and past the vocab, top-p 1, samples with fewer than K
 totals above -1e30, 20 repeats bit for bit), the bf16 shapes left to the
-block kernels, and each step's planner against the library's launch.
+block kernels, and each step's planner against the library's launch; the
+bf16 conv1-pool tensor-core kernel (both layouts, Cout 8 to 128, widths
+whose pooled rows are not whole 8- or 16-pixel runs, heights that are not
+whole bands, 20 repeats bit for bit) and ``conv1_plan`` against the
+library's launch.
 Marked ``cuda``: without a CUDA device every test skips.  Imports no JAX, so
 it runs on the card's machine with
 
@@ -43,6 +47,7 @@ import torch
 from img2latex_tpu_torch.decoding.decode import DecodeConfig
 from img2latex_tpu_torch.ops import _build
 from img2latex_tpu_torch.ops.conv1_lane import conv1_lane_relu_pool, conv1_lane_relu_pool_plain
+from img2latex_tpu_torch.ops import conv1_phase as c1
 from img2latex_tpu_torch.ops.conv1_phase import conv1_pool, conv1_pool_plain
 from img2latex_tpu_torch.ops.conv_cf import convblock_cf, convblock_cf_plain, fused_convblock_cf
 from img2latex_tpu_torch.ops.conv_pool import fused_conv_relu_pool, fused_conv_relu_pool_plain
@@ -1202,3 +1207,79 @@ def test_tc_steps_repeat_bit_for_bit(dev, which):
             runs.append(tuple(out[k] for k in ("scores", "fin", "tokens", "tok_hist", "par_hist", "h_dst", "c_dst")))
     for r in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(r, runs[0]))
+
+
+# (B, H, W, Cout) of the bf16 conv1-pool tensor-core kernel: W/2 = 5 and 17 (NCHW stored element
+# by element), 150 (a partial 16-pixel tile) and 400 (the main path's width); H/2 = 3, 5 and 7, not
+# multiples of the 4-row band; Cout 40 (a chunk of one group of 8) and 128 (four chunks)
+CONV1_TC_SHAPES = [(2, 6, 10, 8), (3, 10, 34, 40), (1, 4, 300, 128), (2, 14, 48, 24), (1, 2, 2, 16),
+                   (4, 64, 800, 32)]
+
+
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+@pytest.mark.parametrize("shape", CONV1_TC_SHAPES)
+def test_conv1_pool_tc(dev, layout, shape):
+    """bf16 with Cout a multiple of 8 runs conv1_pool_tc_kernel: within one bf16 step of the plain
+    version, equal on 99% of the elements where there are 10^4 of them, and the NHWC output the
+    NCHW one transposed bit for bit."""
+    B, H, W, C = shape
+    rng = np.random.default_rng(sum(shape) + 3)
+    x = _t(rng.uniform(-1, 1, (B, H, W, 1)), dev, torch.bfloat16)
+    w = _t(rng.normal(size=(C, 1, 3, 3)) / 3, dev)
+    b = _t(rng.normal(size=C) * 0.1, dev)
+    assert c1.conv1_plan(B, H, W, C, torch.bfloat16).route == "tc"
+    n0, core0 = conv1_pool.tc_launches, conv1_pool.core_launches
+    got = conv1_pool(x, w, b, layout=layout)
+    assert conv1_pool.tc_launches == n0 + 1 and conv1_pool.core_launches == core0
+    ref = conv1_pool_plain(x, w, b, layout=layout)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-4, rtol=BF16_ULP)
+    if got.numel() >= 10_000:
+        assert (got == ref).float().mean().item() >= 0.99
+    other = conv1_pool(x, w, b, layout="nhwc" if layout == "nchw" else "nchw")
+    nhwc, nchw = (got, other) if layout == "nhwc" else (other, got)
+    assert torch.equal(nhwc, nchw.permute(0, 2, 3, 1))
+
+
+def test_conv1_pool_tc_repeats_bit_for_bit(dev):
+    """20 launches at the main path's shape give the same output bit for bit."""
+    rng = np.random.default_rng(11)
+    x = _t(rng.uniform(-1, 1, (64, 64, 800, 1)), dev, torch.bfloat16)
+    w, b = _t(rng.normal(size=(32, 1, 3, 3)) / 3, dev), _t(rng.normal(size=32) * 0.1, dev)
+    first = conv1_pool(x, w, b)
+    assert all(torch.equal(conv1_pool(x, w, b), first) for _ in range(19))
+
+
+@pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 12), (torch.bfloat16, 1), (torch.float32, 32)])
+def test_conv1_pool_core_route(dev, dtype, C):
+    """float32 and bf16 with Cout not a multiple of 8 run the CUDA-core kernel."""
+    rng = np.random.default_rng(C)
+    x = _t(rng.uniform(-1, 1, (2, 6, 18, 1)), dev, dtype)
+    w, b = _t(rng.normal(size=(C, 1, 3, 3)) / 3, dev), _t(rng.normal(size=C) * 0.1, dev)
+    n0, core0 = conv1_pool.tc_launches, conv1_pool.core_launches
+    got = conv1_pool(x, w, b)
+    assert conv1_pool.core_launches == core0 + 1 and conv1_pool.tc_launches == n0
+    torch.testing.assert_close(got.float(), conv1_pool_plain(x, w, b).float(), atol=1e-5,
+                               rtol=0 if dtype == torch.float32 else BF16_ULP)
+
+
+@pytest.mark.parametrize("B,H,W,C", [(512, 64, 800, 32), (3, 10, 34, 40), (1, 2, 2, 8), (7, 6, 4000, 128),
+                                     (2, 40, 20000, 8)])
+def test_conv1_plan_matches_the_library(dev, B, H, W, C):
+    """conv1_plan's tensor-core launch is the one the library computes; the library refuses a band
+    whose rows do not fit shared memory and a Cout that is not a multiple of 8."""
+    plan = c1.conv1_plan(B, H, W, C, torch.bfloat16)
+    assert plan.route == "tc" and c1.tc_launch_shape(B, H, W, C, plan.rows) == plan
+    assert c1.tc_launch_shape(B, H, W, C + 1, plan.rows) is None
+    assert c1.tc_launch_shape(B, H, W, C, 17) is None
+    if plan.rows < min(c1.TC_ROWS, H // 2):  # the planner cut the band to fit shared memory
+        assert c1.tc_launch_shape(B, H, W, C, plan.rows + 1) is None
+
+
+def test_conv1_pool_tc_refused_launch_raises(dev):
+    """A launch the C side refuses (a band of 17 rows) raises instead of falling back."""
+    x = torch.zeros(1, 4, 8, 1, device=dev, dtype=torch.bfloat16)
+    w, b = torch.zeros(8, 1, 3, 3, device=dev), torch.zeros(8, device=dev)
+    bad = c1.Conv1Plan("tc", (1, 1, 1), c1.TC_THREADS, 17, 0)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        c1.conv1_pool_launch(x, c1.pack_conv1_taps(w.to(torch.bfloat16)), b, "nchw", bad)

@@ -1,5 +1,6 @@
 """The routes of the sampling and beam steps (``ops/decode_step.py::sample_plan``,
-``ops/beam_decode.py::beam_plan``), on the CPU.
+``ops/beam_decode.py::beam_plan``) and of conv1_pool (``ops/conv1_phase.py::conv1_plan``), on
+the CPU.
 
 The planners are pure Python: they name the route (the bf16 tensor-core cluster kernels of
 ``csrc/sample_step_tc.cu`` and ``csrc/beam_step_tc.cu``, or the CUDA-core block kernels), the
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from img2latex_tpu_torch.ops import beam_decode as bd
+from img2latex_tpu_torch.ops import conv1_phase as c1
 from img2latex_tpu_torch.ops import decode_step as ds
 
 WIDTHS = [384, 512]
@@ -130,3 +132,67 @@ def test_wrappers_on_the_cpu_count_no_launch():
     ds.vocab_sample_step(h, w, b, tok, fin, None, 0, 2, 0, top_k=3)
     assert counts == (ds.vocab_sample_step.launches, ds.vocab_sample_step.cluster_tc_launches,
                       ds.vocab_sample_step.block_launches)
+
+
+# conv1_plan: bf16 with Cout a multiple of 8 takes conv1_pool_tc_kernel (4 warps a band of 4 pooled
+# rows of one image, 16 KB of staged results beside the band's input rows), the rest the CUDA-core
+# kernel (a thread a pooled pixel, 128 a block).  The card test
+# test_torch_cuda_kernels.py::test_conv1_plan_matches_the_library holds the plan against the library.
+STAGE = 4 * 4 * 1024
+
+
+def test_conv1_plan_at_the_main_shape():
+    """(512, 64, 800, 1) -> 32 in bf16: 8 bands x 512 images, rows of 432 words (400 of data, 16
+    bytes of zeros before, 16 mod 32 words in all)."""
+    plan = c1.conv1_plan(512, 64, 800, 32, torch.bfloat16)
+    assert plan == c1.Conv1Plan("tc", (8, 512, 1), 128, 4, STAGE + 4 * 10 * 432)
+    assert c1.conv1_plan(512, 64, 800, 32, torch.float32) == c1.Conv1Plan("cuda_core", (4, 32, 512), 128, 1, 5120)
+
+
+def test_conv1_plan_at_a_small_odd_shape():
+    """H / 2 = 5 is two bands (the second of one row); W / 2 = 17 is two 16-pixel tiles, whose
+    reads reach word 4 + 32 of a staged row: 37 words, rounded up to 48."""
+    plan = c1.conv1_plan(3, 10, 34, 40, torch.bfloat16)
+    assert plan == c1.Conv1Plan("tc", (2, 3, 1), 128, 4, STAGE + 4 * 10 * 48)
+    assert c1.conv1_plan(3, 2, 2, 8, torch.bfloat16) == c1.Conv1Plan("tc", (1, 3, 1), 128, 1, STAGE + 4 * 4 * 48)
+
+
+@pytest.mark.parametrize("dtype,C", [(torch.float32, 32), (torch.float32, 8), (torch.bfloat16, 1),
+                                     (torch.bfloat16, 12), (torch.bfloat16, 129 - 1 - 3)])
+def test_conv1_plan_cuda_core_route(dtype, C):
+    """float32, and bf16 with Cout not a multiple of 8, take the CUDA-core kernel."""
+    plan = c1.conv1_plan(7, 6, 300, C, dtype)
+    assert plan == c1.Conv1Plan("cuda_core", (2, 3, 7), 128, 1, 5120)
+
+
+@pytest.mark.parametrize("W", [2, 30, 32, 34, 798, 800, 1602, 4000])
+def test_conv1_tc_row_words(W):
+    """A staged row holds its 16 bytes of zeros, its W / 2 words and every word the last tile's
+    windows read (4 + 16 tiles), and is 16 mod 32 words long."""
+    P = c1.tc_row_words(W)
+    tiles = -(-(W // 2) // 16)
+    assert P % 32 == 16 and 16 * tiles + 5 <= P < 16 * tiles + 5 + 32 and P >= 4 + W // 2
+
+
+@pytest.mark.parametrize("W,rows", [(4000, 4), (12000, 3), (16000, 2), (20000, 1)])
+def test_conv1_plan_cuts_the_band_to_fit(W, rows):
+    """The band shrinks until its input rows fit the block's 227 KB of shared memory; past one row
+    (W above ~28000) the CUDA-core kernel takes the shape, as it does above 65536."""
+    plan = c1.conv1_plan(2, 64, W, 32, torch.bfloat16)
+    assert plan.route == "tc" and plan.rows == rows and plan.smem_bytes <= c1.MAX_SMEM
+    assert c1.tc_smem_bytes(W, rows + 1) > c1.MAX_SMEM or rows == c1.TC_ROWS
+    assert c1.conv1_plan(2, 64, 30000, 32, torch.bfloat16).route == "cuda_core"
+    assert c1.conv1_plan(2, 64, 70000, 32, torch.bfloat16).route == "cuda_core"
+
+
+@pytest.mark.parametrize("args", [(0, 64, 800, 32), (65536, 64, 800, 32), (1, 63, 800, 32), (1, 64, 801, 32),
+                                  (1, 0, 800, 32), (1, 64, 0, 32), (1, 64, 800, 0), (1, 64, 800, 129),
+                                  (1, 2 * 65536, 8, 8)])
+def test_conv1_plan_rejects_bad_shapes(args):
+    with pytest.raises(ValueError):
+        c1.conv1_plan(*args, torch.bfloat16)
+
+
+def test_conv1_plan_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        c1.conv1_plan(1, 64, 800, 32, torch.float16)
