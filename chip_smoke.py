@@ -33,7 +33,14 @@ versions; ``predict_batch`` on the chain for both memory kinds (grid also
 beam-5 and sampling) against the plain path, with the chain off beside it,
 and two broken ``convblock_cf`` that must fail; ``convblock_cf``'s backward,
 a train step on the chain against the plain path, and phase 16's checkpoint
-loaded with ``use_pallas_chain=True``.
+loaded with ``use_pallas_chain=True``.  Then ``evaluate_checkpoint``
+(phase 21) from a canvas cache written with numpy alone (no image files,
+no Pillow): the grid model and phase 16's vector checkpoint over 2048
+canvases at batch 512, streaming and device-cached, grid beam-5 over 512,
+each held against ``predict_batch`` on the same canvases and against the
+metrics recomputed on the host, the two loops against each other, and the
+pipelined ``predict_batch`` timed beside the serial loop it replaced; and
+each ``bench_*_torch.py`` once at a reduced batch (phase 22).
 
 The bf16 ``lstm_layer_step``, ``vocab_argmax_step``, attention ``h @ W_h``,
 conv-pool, ``vocab_sample_step``, ``beam_step`` and conv1-pool kernels run on
@@ -2902,6 +2909,254 @@ def phase_chain_training(dev, rng, card: str, kernels: dict, tcfg, step_dir, bat
     check(ok, "the checkpoint's chain predictor disagrees with the plain path")
 
 
+EVAL_N = 2048          # test canvases of the evaluate phase
+EVAL_BEAM_N = 512      # of which the beam-5 evaluate decodes the first batch
+EVAL_BODY = (3, 40)    # formula lengths in tokens, drawn uniformly
+EVAL_KEYS = ("end_to_end_seconds", "decode_seconds", "compile_and_first_batch_seconds", "host_prep_seconds",
+             "host_post_seconds", "input_wait_seconds", "cache_build_seconds", "setup_seconds",
+             "host_other_seconds", "steady_images", "images_per_second", "images_per_second_decode_only",
+             "images_per_second_resident")
+# each bench script at a reduced batch: (module, argv, metric)
+BENCH_RUNS = (("bench_torch", ["512"], "greedy_decode_images_per_sec"),
+              ("bench_beam_torch", ["128", "5"], "beam5_decode_images_per_sec"),
+              ("bench_sampling_torch", ["512"], "topk_sampling_decode_images_per_sec"),
+              ("bench_train_torch", ["32"], "train_step_images_per_sec"))
+
+
+def write_canvas_corpus(root: str, tokenizer, n: int, cfg, seed: int = SEED + 21) -> str:
+    """A test split with no image files, as the card's machine (no Pillow)
+    must have it: the split file, the formulas, and the canvases drawn from
+    the formulas' token ids with data/synthetic.py's numpy helpers (Pillow's
+    Lanczos bytes), written into the canvas cache at ``canvas_cache_path``
+    (every image counts as missing in the key).  Returns the cache dir."""
+    from img2latex_tpu_torch.data.pipeline import canvas_cache_path, parse_split_file
+    from img2latex_tpu_torch.data.synthetic import fit_canvas_u8, render_formula_image
+
+    rng = np.random.default_rng(seed)
+    h, w, c = cfg.image_shape
+    os.makedirs(root, exist_ok=True)
+    bodies = [rng.integers(4, tokenizer.vocab_size, size=int(rng.integers(*EVAL_BODY))) for _ in range(n)]
+    with open(os.path.join(root, cfg.data.formulas_file), "w") as f:
+        f.write("\n".join(tokenizer.decode(b.tolist()) for b in bodies) + "\n")
+    split = os.path.join(root, cfg.data.test_file)
+    with open(split, "w") as f:
+        f.write("\n".join(f"eval_{i:06d}.png {i}" for i in range(n)) + "\n")
+    cache_dir = os.path.join(root, "canvas_cache")
+    os.makedirs(cache_dir)
+    samples = parse_split_file(split, n)
+    path = canvas_cache_path(cache_dir, samples, os.path.join(root, cfg.data.img_dir), (h, w), c,
+                             cfg.preprocessing.pad_value)
+    arr = np.lib.format.open_memmap(path, mode="w+", dtype=np.uint8, shape=(n, h, w, c))
+    for i, body in enumerate(bodies):
+        arr[i] = fit_canvas_u8(render_formula_image(body), h, w, cfg.preprocessing.pad_value)
+    arr.flush()
+    del arr
+    return cache_dir
+
+
+def _eval_counters():
+    from img2latex_tpu_torch.ops.beam_decode import beam_step
+    from img2latex_tpu_torch.ops.conv1_phase import conv1_pool
+    from img2latex_tpu_torch.ops.decode_step import lstm_layer_step, vocab_argmax_step
+    from img2latex_tpu_torch.ops.grid_decode import attend_step
+
+    return {"conv1_pool": conv1_pool, "attend_step": attend_step, "lstm_layer_step": lstm_layer_step,
+            "vocab_argmax_step": vocab_argmax_step, "beam_step": beam_step}
+
+
+def _serial_predict(pred, images, batch_size: int, **kw):
+    """``predict_batch(return_ids=True)`` as the port ran it before its
+    pipeline: each batch prepped serially, decoded, and fetched before the
+    next batch's prep."""
+    from img2latex_tpu_torch.data.transforms import prepare_image_u8
+    from img2latex_tpu_torch.decoding.decode import trim_host
+    from img2latex_tpu_torch.training.predictor import batch_seed
+
+    h, w, c = pred.cfg.image_shape
+    tok, dcfg, out = pred.tokenizer, pred.decode_config(**kw), []
+    for i in range(0, len(images), batch_size):
+        chunk = images[i : i + batch_size]
+        buf = np.zeros((batch_size, h, w, c), dtype=np.uint8)
+        for j, img in enumerate(chunk):
+            buf[j] = prepare_image_u8(img, h, w, c, pred.cfg.preprocessing.pad_value)
+        tokens = pred.decode_canvases(buf, dcfg=dcfg, seed=batch_seed(0, i // batch_size))[: len(chunk)]
+        out += trim_host(tokens, tok.end_token_id, tok.pad_token_id, start_id=tok.start_token_id)
+    return out
+
+
+def _evaluate_both_loops(what: str, card: str, pred, root: str, cache_dir: str, out_dir: str,
+                         expect: tuple, sync, **kw) -> tuple:
+    """evaluate_checkpoint streaming, then device-cached, through ``pred``:
+    the kernels in ``expect`` launched in each run (counts set to 0 just
+    before it, read just after), the two loops' predictions equal, the
+    cached run's ``cache_build_seconds`` above 0.  Returns the streaming
+    result and the rows of its predictions.json."""
+    from img2latex_tpu_torch.training.evaluator import evaluate_checkpoint
+
+    counters = _eval_counters()
+    results, rows = {}, {}
+    for loop, extra in (("streaming", {}), ("device-cached", {"data.device_cache": True})):
+        sync()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = evaluate_checkpoint(None, data_dir=root, batch_size=BATCH, predictor=pred,
+                                  output_dir=os.path.join(out_dir, loop),
+                                  config_overrides={"data.canvas_cache_dir": cache_dir, **extra}, **kw)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {n: counters[n].launches for n in expect}
+        with open(os.path.join(out_dir, loop, "predictions.json")) as f:
+            rows[loop] = json.load(f)["predictions"]
+        log(f"evaluate_checkpoint, {what}, {loop}: {res['num_images']} images, {wall:.3f} s with the loader's "
+            f"set-up, the metrics and predictions.json; bleu {res['bleu']:.4f}, levenshtein "
+            f"{res['levenshtein']:.4f}, token accuracy {res['token_accuracy']:.4f}; "
+            f"{len({r['prediction'] for r in rows[loop]})} distinct predictions; accounting "
+            f"{json.dumps({k: res[k] for k in EVAL_KEYS})}; launches {json.dumps(launches)} [{card}]")
+        for name, n in launches.items():
+            check(n > 0, f"evaluate ({what}, {loop}): kernel {name} was not launched")
+        check((res["cache_build_seconds"] > 0) == (loop == "device-cached"),
+              f"evaluate ({what}, {loop}): cache_build_seconds {res['cache_build_seconds']}")
+        results[loop] = res
+    check(rows["streaming"] == rows["device-cached"], f"evaluate ({what}): the two loops' predictions differ")
+    for k in ("num_images", "bleu", "levenshtein", "token_accuracy"):
+        check(results["streaming"][k] == results["device-cached"][k], f"evaluate ({what}): {k} differs by loop")
+    return results["streaming"], rows["streaming"]
+
+
+def _check_against_predict_batch(what: str, pred, dataset, rows, result, n: int, **kw) -> list:
+    """The evaluation's predictions against ``predict_batch(return_ids=True)``
+    on the same canvases and batch, and its metrics against
+    ``calculate_metrics`` / ``token_list_accuracy`` recomputed on the host.
+    Returns the canvases."""
+    from img2latex_tpu_torch.decoding.decode import trim_host
+    from img2latex_tpu_torch.ops.metrics import calculate_metrics, token_list_accuracy
+
+    tok = pred.tokenizer
+    canvases = [dataset.image(i) for i in range(n)]
+    ids = pred.predict_batch(canvases, return_ids=True, batch_size=BATCH, **kw)
+    check([r["prediction"] for r in rows] == tok.decode_rows(ids),
+          f"evaluate ({what}): predictions differ from predict_batch's tokens")
+    tgts = trim_host(np.stack([dataset.token_ids(i) for i in range(n)])[:, 1:], tok.end_token_id, tok.pad_token_id)
+    check([r["reference"] for r in rows] == tok.decode_rows(tgts), f"evaluate ({what}): references")
+    q = calculate_metrics(ids, tgts, pred.cfg.evaluation.bleu_n)
+    correct, total = token_list_accuracy(ids, tgts, tok.pad_token_id)
+    acc = correct / total if total else 0.0
+    log(f"evaluate ({what}): tokens equal predict_batch's on {n} canvases; metrics recomputed on the host "
+        f"bleu {q['bleu']:.6f}, levenshtein {q['levenshtein']:.6f}, token accuracy {acc:.6f}")
+    check(q["bleu"] == result["bleu"] and q["levenshtein"] == result["levenshtein"]
+          and acc == result["token_accuracy"], f"evaluate ({what}): metrics differ from the host's recomputation")
+    return canvases
+
+
+def time_pipeline(pred, canvases, what: str, card: str, sync, reps: int = 2, **kw) -> None:
+    """``predict_batch`` of ``canvases`` at batch BATCH, pipelined (as it runs:
+    no prep pool for canvas-size arrays; and with the pool forced on) beside
+    the serial loop it replaced, in turns (serial, pipelined, pipelined with
+    the pool, and back), ``reps`` times: images/s of each, the stats of the
+    pipelined runs, ids equal."""
+    from img2latex_tpu_torch.training import predictor as pm
+
+    walls = {"serial": [], "pipelined": [], "pipelined, pool forced": []}
+    stats_of = {"pipelined": [], "pipelined, pool forced": []}
+    order = list(walls) + list(walls)[::-1]
+    ref = None
+    needs_pillow = pm._needs_pillow
+    for mode in order * reps:
+        stats = {}
+        sync()
+        t0 = time.perf_counter()
+        if mode == "serial":
+            ids = _serial_predict(pred, canvases, BATCH, **kw)
+        else:
+            pm._needs_pillow = needs_pillow if mode == "pipelined" else (lambda *a: True)
+            try:
+                ids = pred.predict_batch(canvases, return_ids=True, stats=stats, **kw)
+            finally:
+                pm._needs_pillow = needs_pillow
+            stats_of[mode].append({k: (round(v, 4) if isinstance(v, float) else v) for k, v in stats.items()
+                                   if k != "first_calls"})
+        sync()
+        walls[mode].append(time.perf_counter() - t0)
+        ref = ids if ref is None else ref
+        check(ids == ref, f"predict_batch ({what}, {mode}) ids differ")
+    n = len(canvases)
+    log(f"grid predict_batch {what} of {n} canvases at batch {BATCH}, bf16, images/s in turns: "
+        + "; ".join(f"{m} {', '.join(f'{n / t:.1f}' for t in ts)}" for m, ts in walls.items())
+        + f"; pipelined stats (s) {json.dumps(stats_of)} [{card}]")
+
+
+def phase_evaluate(dev, card: str, gcfg, gmodel, tokenizer, step_dir, tmp: str, sync=None) -> None:
+    """evaluate_checkpoint on the card from a Pillow-free canvas cache
+    (:func:`write_canvas_corpus`): the grid model at the flagship's width
+    (its head scaled by HEAD_GAIN, so that the decodes differ across
+    canvases) and phase 16's trained vector checkpoint through
+    Predictor.from_checkpoint, each streaming and device-cached over
+    EVAL_N canvases at batch BATCH; grid beam-5 over EVAL_BEAM_N.  Each is
+    held against predict_batch on the same canvases and the host's
+    metrics.  Then the pipelined predict_batch beside the serial loop it
+    replaced, greedy and beam-5, in the same run (:func:`time_pipeline`)."""
+    import torch
+
+    from img2latex_tpu_torch.data.pipeline import create_data_loaders
+    from img2latex_tpu_torch.training.predictor import Predictor
+
+    if sync is None:
+        sync = torch.cuda.synchronize
+    root = os.path.join(tmp, "eval_corpus")
+    t0 = time.perf_counter()
+    cache_dir = write_canvas_corpus(root, tokenizer, EVAL_N, gcfg)
+    log(f"evaluate corpus: {EVAL_N} canvases drawn with numpy into the canvas cache in "
+        f"{time.perf_counter() - t0:.1f} s (no image files, no Pillow)")
+    ecfg = copy.deepcopy(gcfg)
+    ecfg.data.data_dir, ecfg.data.canvas_cache_dir = root, cache_dir
+    dataset = create_data_loaders(ecfg, tokenizer, splits=("test",))["test"].dataset
+    check(dataset._mmap is not None, "the canvas cache was not read")
+    grid_kernels = ("conv1_pool", "attend_step", "lstm_layer_step", "vocab_argmax_step")
+    params = (gmodel.encoder.head.weight, gmodel.encoder.head.bias)
+    saved = [p.detach().clone() for p in params]
+    try:
+        with torch.no_grad():
+            for p in params:
+                p.mul_(HEAD_GAIN)
+        gpred = Predictor(gcfg, gmodel, tokenizer, batch_size=BATCH)
+        res, rows = _evaluate_both_loops("grid greedy", card, gpred, root, cache_dir, os.path.join(tmp, "eval_grid"),
+                                         grid_kernels, sync)
+        canvases = _check_against_predict_batch("grid greedy", gpred, dataset, rows, res, EVAL_N)
+        res, rows = _evaluate_both_loops(f"grid beam {BEAM}", card, gpred, root, cache_dir,
+                                         os.path.join(tmp, "eval_beam"), grid_kernels[:3] + ("beam_step",), sync,
+                                         beam_size=BEAM, max_batches=EVAL_BEAM_N // BATCH)
+        _check_against_predict_batch(f"grid beam {BEAM}", gpred, dataset, rows, res, EVAL_BEAM_N, beam_size=BEAM)
+        for what, kw in (("greedy", {}), (f"beam {BEAM}", dict(beam_size=BEAM))):
+            time_pipeline(gpred, canvases, what, card, sync, **kw)
+    finally:
+        with torch.no_grad():
+            for p, v in zip(params, saved):
+                p.copy_(v)
+
+    vpred = Predictor.from_checkpoint(str(step_dir), batch_size=BATCH, device=str(dev))
+    res, rows = _evaluate_both_loops("vector, phase 16's checkpoint", card, vpred, root, cache_dir,
+                                     os.path.join(tmp, "eval_vector"), grid_kernels[:1] + grid_kernels[2:], sync)
+    _check_against_predict_batch("vector, phase 16's checkpoint", vpred, dataset, rows, res, EVAL_N)
+
+
+def phase_bench_scripts(card: str) -> None:
+    """Each bench_*_torch.py's main once at a reduced batch: one JSON line
+    on stdout, with its metric and a positive value."""
+    import importlib
+    import io
+
+    for name, argv, metric in BENCH_RUNS:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            importlib.import_module(name).main(argv)
+        lines = buf.getvalue().strip().splitlines()
+        check(len(lines) == 1, f"{name} printed {len(lines)} lines")
+        line = json.loads(lines[0])
+        log(f"{name}.py {' '.join(argv)}: {lines[0]} [{card}]")
+        check(line["metric"] == metric and line["value"] > 0, f"{name}: {lines[0]}")
+
+
 def _build_dir():
     from img2latex_tpu_torch.ops import _build
 
@@ -3231,6 +3486,12 @@ def main() -> int:
 
         # ---- phase 20: training on the chain, phase 16's checkpoint on the chain ------
         phase_chain_training(dev, rng, card, kernels, tcfg, step_dir, tbatch)
+
+        # ---- phase 21: evaluate_checkpoint from a Pillow-free canvas cache --------------
+        phase_evaluate(dev, card, gcfg, gmodel, tokenizer, step_dir, ckpt_tmp)
+
+    # ---- phase 22: the bench scripts, each once at a reduced batch -------------------
+    phase_bench_scripts(card)
 
     # ---- report --------------------------------------------------------------
     log(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s (build included)")

@@ -33,7 +33,16 @@ class DataConfig:
     log_frequency: int = 1000  # train steps between the host's reads of the metrics
     eval_batch_size_multiplier: int = 2
     max_eval_batch_size: int = 128
+    load_in_memory: bool = False  # hold a split's canvases in host RAM (skipped over half the free RAM)
+    # A memory-mapped .npy of a split's prepared uint8 canvases, keyed as the
+    # JAX package keys it (data/pipeline.py::canvas_cache_path): built once
+    # where Pillow is, then read anywhere with numpy alone.
+    canvas_cache_dir: Optional[str] = None
     device_prefetch: int = 2  # batches the host loader prepares ahead
+    # evaluate: upload the split once as uint8 to the card and decode from
+    # device-side batch views; a split over the budget streams instead
+    device_cache: bool = False
+    device_cache_budget_gb: Optional[float] = None  # None: half the card's free memory
 
 
 @dataclass

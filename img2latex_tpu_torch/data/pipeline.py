@@ -10,17 +10,28 @@
   load of :mod:`img2latex_tpu_torch.data.transforms`) with a background
   prefetcher.
 * Batches stay uint8; they are normalized on the device by the step.
+* ``canvas_cache_dir``: a split's prepared canvases persist in one
+  memory-mapped ``.npy`` (``pipeline.py:146-205``), at the path
+  :func:`canvas_cache_path` names with the JAX package's key, so that a
+  cache either package built is read by the other.  It is built once where
+  Pillow is and read anywhere with numpy alone (the card's machine has no
+  Pillow).
+* ``load_in_memory`` holds a split's canvases in host RAM, unless they
+  would take more than half of the RAM available (``/proc/meminfo``, else
+  ``os.sysconf``), which is logged.
 
-Not ported yet: the multi-host slice of each batch, the memory-mapped canvas
-cache, ``load_in_memory`` and host-side augmentation.
+Not ported yet: the multi-host slice of each batch and host-side
+augmentation.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import os
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -69,12 +80,55 @@ def parse_split_file(path: str, n_formulas: int) -> List[Tuple[str, int]]:
     return pairs
 
 
+def _image_path(img_dir: str, name: str) -> str:
+    path = os.path.join(img_dir, name)
+    if not os.path.exists(path) and not os.path.splitext(name)[1]:
+        path = path + ".png"
+    return path
+
+
+def canvas_cache_path(cache_dir: str, samples: Sequence[Tuple[str, int]], img_dir: str,
+                      img_size: Tuple[int, int], channels: int, pad_value: int) -> str:
+    """The ``.npy`` path of a split's prepared canvases under ``cache_dir``:
+    the JAX package's key (``pipeline.py:158-176``), a SHA-1 of every sample
+    name with its file's size and mtime (or ``missing``), ``abspath(img_dir)``,
+    the canvas geometry, the pad value and ``v2``."""
+    h, w = img_size
+    hsh = hashlib.sha1()
+    for name, _ in samples:
+        hsh.update(name.encode())
+        try:
+            st = os.stat(_image_path(img_dir, name))
+            hsh.update(f"|{st.st_size}:{st.st_mtime_ns}\n".encode())
+        except OSError:
+            hsh.update(b"|missing\n")  # a missing file gives a zero canvas
+    hsh.update(f"|{os.path.abspath(img_dir)}|{h}x{w}x{channels}|pad{pad_value}|v2".encode())
+    return os.path.join(cache_dir, f"canvas_{hsh.hexdigest()[:16]}.npy")
+
+
+def available_ram_bytes() -> Optional[int]:
+    """``MemAvailable`` of ``/proc/meminfo``, else the available pages of
+    ``os.sysconf``; None where neither is readable."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except (OSError, ValueError, IndexError):
+        pass
+    try:
+        return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    except (AttributeError, ValueError, OSError):
+        return None
+
+
 class Im2LatexDataset:
     """Map-style dataset over an IM2LaTeX split (host side, uint8 output)."""
 
     def __init__(self, split_file: str, formulas: Sequence[str], img_dir: str,
                  tokenizer: LaTeXTokenizer, img_size: Tuple[int, int] = (64, 800),
-                 channels: int = 1, pad_value: int = 255):
+                 channels: int = 1, pad_value: int = 255, load_in_memory: bool = False,
+                 canvas_cache_dir: Optional[str] = None):
         self.samples = parse_split_file(split_file, len(formulas))
         self.formulas = formulas
         self.img_dir = img_dir
@@ -82,16 +136,71 @@ class Im2LatexDataset:
         self.img_size = img_size
         self.channels = channels
         self.pad_value = pad_value
+        self._cache: Optional[List[np.ndarray]] = None
+        self._mmap: Optional[np.ndarray] = None
+        if canvas_cache_dir:
+            try:
+                self._mmap = self._open_canvas_cache(canvas_cache_dir)
+            except Exception:
+                logger.warning("canvas cache unavailable at %s; falling back to per-image loads",
+                               canvas_cache_dir, exc_info=True)
+        if load_in_memory:
+            est = len(self.samples) * img_size[0] * img_size[1] * channels
+            avail = available_ram_bytes()
+            if avail is not None and est > avail * 0.5:
+                logger.warning("load_in_memory would use ~%.1f GB (>50%% of available %.1f GB); "
+                               "falling back to lazy loading", est / 1e9, avail / 1e9)
+            else:
+                self._cache = [self.image(i) for i in range(len(self.samples))]
 
     def __len__(self) -> int:
         return len(self.samples)
 
+    def _open_canvas_cache(self, cache_dir: str) -> np.ndarray:
+        """mmap this split's canvases at :func:`canvas_cache_path`, building
+        the file on a miss: a per-pid tmp file, an atomic ``os.replace`` (so
+        that concurrent builds race benignly), and the tmp file unlinked
+        when the build is aborted."""
+        h, w = self.img_size
+        path = canvas_cache_path(cache_dir, self.samples, self.img_dir, self.img_size, self.channels,
+                                 self.pad_value)
+        if not os.path.exists(path):
+            os.makedirs(cache_dir, exist_ok=True)
+            tmp = f"{path}.tmp.{os.getpid()}"
+            done = False
+            try:
+                arr = np.lib.format.open_memmap(tmp, mode="w+", dtype=np.uint8,
+                                                shape=(len(self.samples), h, w, self.channels))
+                t0 = time.perf_counter()
+                for i in range(len(self.samples)):
+                    arr[i] = self._load_image(i)
+                arr.flush()
+                del arr
+                os.replace(tmp, path)
+                done = True
+                logger.info("canvas cache built: %s (%d canvases, %.0f MB, %.1f s)", path,
+                            len(self.samples), len(self.samples) * h * w * self.channels / 1e6,
+                            time.perf_counter() - t0)
+            finally:
+                if not done:
+                    try:
+                        os.unlink(tmp)
+                    except OSError:
+                        pass
+        return np.load(path, mmap_mode="r")
+
     def image(self, i: int) -> np.ndarray:
-        """The i-th canvas; a missing file gives a zero canvas, logged."""
+        """The i-th canvas: from RAM, the canvas cache, or the image file."""
+        if self._cache is not None:
+            return self._cache[i]
+        if self._mmap is not None:
+            return np.asarray(self._mmap[i])
+        return self._load_image(i)
+
+    def _load_image(self, i: int) -> np.ndarray:
+        """The i-th canvas read through Pillow; a missing file gives a zero canvas, logged."""
         name, _ = self.samples[i]
-        path = os.path.join(self.img_dir, name)
-        if not os.path.exists(path) and not os.path.splitext(name)[1]:
-            path = path + ".png"
+        path = _image_path(self.img_dir, name)
         if not os.path.exists(path):
             logger.warning("Image not found: %s (zero canvas substituted)", path)
             return np.zeros((self.img_size[0], self.img_size[1], self.channels), dtype=np.uint8)
@@ -224,7 +333,9 @@ def create_data_loaders(cfg: Config, tokenizer: LaTeXTokenizer,
     for split in splits:
         ds = Im2LatexDataset(os.path.join(data_dir, split_files[split]), formulas, img_dir,
                              tokenizer, img_size=(h, w), channels=c,
-                             pad_value=cfg.preprocessing.pad_value)
+                             pad_value=cfg.preprocessing.pad_value,
+                             load_in_memory=cfg.data.load_in_memory,
+                             canvas_cache_dir=cfg.data.canvas_cache_dir)
         is_train = split == "train"
         loaders[split] = BatchLoader(ds, batch_size=cfg.data.batch_size if is_train else eval_bs,
                                      shuffle=is_train, drop_last=is_train, seed=cfg.training.seed,

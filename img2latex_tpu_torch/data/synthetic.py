@@ -14,6 +14,7 @@ Pillow inside the function.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import List, Optional, Sequence, Tuple
 
@@ -54,9 +55,11 @@ def _lanczos(x: np.ndarray) -> np.ndarray:
     return np.where((x >= -3.0) & (x < 3.0), np.sinc(x) * np.sinc(x / 3.0), 0.0)
 
 
+@functools.lru_cache(maxsize=512)
 def _lanczos_coeffs(in_size: int, out_size: int) -> np.ndarray:
     """(out_size, in_size) int64 fixed-point weights, as Pillow's
-    ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` make them."""
+    ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` make them; cached
+    by size (read-only), since a corpus's formula widths repeat."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = 3.0 * filterscale
@@ -72,13 +75,17 @@ def _lanczos_coeffs(in_size: int, out_size: int) -> np.ndarray:
             ww += float(v)
         k[xx, xmin:xmax] = w / ww if ww != 0.0 else w
     fixed = k * (1 << _PRECISION_BITS)
-    return np.where(k < 0, np.trunc(fixed - 0.5), np.trunc(fixed + 0.5)).astype(np.int64)
+    out = np.where(k < 0, np.trunc(fixed - 0.5), np.trunc(fixed + 0.5)).astype(np.int64)
+    out.flags.writeable = False
+    return out
 
 
 def _resample(img: np.ndarray, coeffs: np.ndarray, axis: int) -> np.ndarray:
     """One pass of Pillow's 8-bit resample along ``axis``, with its rounding and clip."""
-    src = np.moveaxis(img.astype(np.int64), axis, -1)
-    acc = (1 << (_PRECISION_BITS - 1)) + src @ coeffs.T
+    src = np.moveaxis(img.astype(np.float64), axis, -1)
+    # a float64 product is exact here (integer terms, sums below 2^53) and
+    # runs in BLAS, where an int64 one does not
+    acc = (1 << (_PRECISION_BITS - 1)) + (src @ coeffs.T.astype(np.float64)).astype(np.int64)
     out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
     return np.moveaxis(out, -1, axis)
 

@@ -4,7 +4,9 @@ beam search's pieces and host-side post-processing.
 Counterpart of ``img2latex_tpu/decoding/decode.py::greedy_sample_decode``,
 ``filter_top_k``, ``filter_top_p``, ``_next_token_probs``,
 ``signal_alpha``, ``select_uncertain``, ``topk_iterative``,
-``beam_decode``, ``backtrack_and_select`` and ``trim_host``.  Greedy is the argmax of the
+``beam_decode``, ``backtrack_and_select``, ``trim_host`` and
+``decode_chunks`` (the host's prep pipelined against the card's decode,
+:func:`decode_chunks`).  Greedy is the argmax of the
 logits (the lowest index wins ties); a row that emitted END emits PAD from
 the next step on, and the token fed back is the one emitted.
 :func:`greedy_decode_eager` steps the model one token at a time in plain
@@ -49,8 +51,9 @@ penalty is above 0 (:func:`backtrack_and_select`).  The kernels of
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -323,3 +326,69 @@ def trim_host(tokens: np.ndarray, end_id: int, pad_id: int,
     if start_id is not None:
         valid[:, 0] &= arr[:, 0] != start_id
     return [arr[i, valid[i]].tolist() for i in range(B)]
+
+
+def decode_chunks(plan, seed: int, stats: Optional[dict] = None) -> List[Tuple[Sequence[int], np.ndarray]]:
+    """Pipelined host prep and device decode of a sequence of chunks (the
+    counterpart of ``img2latex_tpu/decoding/decode.py::decode_chunks``).
+
+    ``plan``: ``(exec_key, run, prep_fn, idxs)`` entries.  ``prep_fn()``
+    returns the chunk's uint8 canvases; ``run(canvases, seed)`` enqueues
+    its decode and returns the token tensor without waiting for the card;
+    ``idxs`` are the input positions the chunk covers.  The i-th chunk is
+    decoded with the kernel seed ``training/predictor.py::batch_seed(seed,
+    i)`` (the JAX package splits a ``PRNGKey`` instead).  The loop dispatches
+    chunk i, fetches chunk i - 1, then preps chunk i + 1, and fetches chunk
+    i (``.cpu()``, which waits for the card) only after that, so that the
+    host's prep rides under the card's decode of chunk i.
+
+    ``stats`` (optional, mutated) takes the evaluator's accounting:
+    ``prep_s``, ``dispatch_s`` and ``fetch_s`` (wall seconds of the host's
+    prep, enqueueing and waiting for tokens), ``steady_images``, and
+    ``first_calls``: one ``{"exec", "seconds", "images"}`` entry for the
+    first chunk of each ``exec_key``, whose dispatch and fetch walls are
+    kept out of ``dispatch_s`` / ``fetch_s`` and whose images are kept out
+    of ``steady_images``.  In the port a first call carries the first
+    launch's ``nvcc`` build of the kernel library (once a process) and the
+    libraries' handles and plans (cuBLAS, cuDNN), where the JAX package's
+    carries an XLA compile.
+
+    Returns ``(idxs, tokens)`` pairs in plan order, tokens a host array."""
+    from img2latex_tpu_torch.training.predictor import batch_seed  # it imports this module
+
+    seen: set = set()
+    out: List[Tuple[Sequence[int], np.ndarray]] = []
+    pending = None  # (tokens on the card, idxs, key, first dispatch wall or None)
+
+    def _fetch(p) -> None:
+        tokens_dev, idxs, key, dispatch_wall = p
+        t0 = time.perf_counter()
+        arr = tokens_dev.cpu().numpy() if isinstance(tokens_dev, torch.Tensor) else np.asarray(tokens_dev)
+        dt = time.perf_counter() - t0
+        if stats is not None:
+            if dispatch_wall is not None:
+                stats.setdefault("first_calls", []).append(
+                    {"exec": str(key), "seconds": dt + dispatch_wall, "images": len(idxs)})
+            else:
+                stats["fetch_s"] = stats.get("fetch_s", 0.0) + dt
+                stats["steady_images"] = stats.get("steady_images", 0) + len(idxs)
+        out.append((idxs, arr))
+
+    for i, (key, run, prep_fn, idxs) in enumerate(plan):
+        t0 = time.perf_counter()
+        buf = prep_fn()
+        t1 = time.perf_counter()
+        tokens = run(buf, batch_seed(seed, i))
+        t2 = time.perf_counter()
+        first = key not in seen
+        seen.add(key)
+        if stats is not None:
+            stats["prep_s"] = stats.get("prep_s", 0.0) + (t1 - t0)
+            if not first:
+                stats["dispatch_s"] = stats.get("dispatch_s", 0.0) + (t2 - t1)
+        if pending is not None:
+            _fetch(pending)
+        pending = (tokens, idxs, key, (t2 - t1) if first else None)
+    if pending is not None:
+        _fetch(pending)
+    return out

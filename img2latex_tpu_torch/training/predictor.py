@@ -31,21 +31,47 @@ checkpoint converted by
 ``use_pallas_chain`` puts the encoder on the channel-first chain
 (``hardware.pallas_chain``).  :meth:`Predictor.predict` decodes one image at
 batch 1, as the JAX package's does.
+
+``predict_batch`` pipelines the host against the card as the JAX
+``Predictor`` does (``_decode_chunks``, ``_prep_pool``, ``_prep_chunk``):
+it runs its chunks through :func:`img2latex_tpu_torch.decoding.decode.decode_chunks`,
+which dispatches chunk i (:meth:`Predictor.decode_canvases` with
+``fetch=False``: the upload and every launch enqueued, the tokens left on
+the card), then preps chunk i + 1 (in a thread pool where Pillow reads an
+image of it) and only then fetches chunk i.  On the card a
+chunk's canvases are prepped straight into one of two pinned host buffers
+and uploaded with ``non_blocking=True``, so that the upload does not stall
+the host.  ``stats`` takes the JAX package's accounting (``prep_s``,
+``dispatch_s``, ``fetch_s``, ``first_calls``, ``steady_images``, ``post_s``).
+The dispatch still waits for the card where a decode reads a flag back:
+early exit reads whether every row has ended once every 8 steps
+(``ops/decode_step.py:597``, ``ops/beam_decode.py:231``), so there the
+overlap is partial.  The selective-beam split reads nothing back: its k
+rows are counted on the host from ``frac * batch`` and chosen on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Sequence
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from img2latex_tpu_torch.config import Config, config_from_dict, set_by_path, validate_config
+from img2latex_tpu_torch.config import (
+    Config,
+    InferenceConfig,
+    config_from_dict,
+    set_by_path,
+    validate_config,
+)
 from img2latex_tpu_torch.data.tokenizer import LaTeXTokenizer
 from img2latex_tpu_torch.data.transforms import prepare_image_u8
-from img2latex_tpu_torch.decoding.decode import DecodeConfig, select_uncertain, trim_host
+from img2latex_tpu_torch.decoding.decode import DecodeConfig, decode_chunks, select_uncertain, trim_host
 from img2latex_tpu_torch.models.seq2seq import Seq2SeqModel, build_model
 from img2latex_tpu_torch.ops.beam_decode import beam_decode
 from img2latex_tpu_torch.ops.decode_step import greedy_decode, pack_decoder_weights, sample_decode
@@ -61,6 +87,9 @@ from img2latex_tpu_torch.utils import checkpoint as ckpt_lib
 from img2latex_tpu_torch.utils.device import resolve_device, torch_dtype
 
 
+STAGING_SLOTS = 2  # pinned host buffers: a chunk being prepped while the one before uploads
+
+
 def batch_seed(seed: int, index: int) -> int:
     """The int32 kernel seed of the ``index``-th batch of a ``predict_batch``
     call with ``seed``: the first 32 bits of numpy's ``SeedSequence([seed,
@@ -69,6 +98,15 @@ def batch_seed(seed: int, index: int) -> int:
     the two draw different streams from the same seed.)"""
     bits = np.random.SeedSequence([seed, index]).generate_state(1, dtype=np.uint32)[0]
     return int(bits.astype(np.int32))
+
+
+def _needs_pillow(image: Any, h: int, w: int) -> bool:
+    """Whether ``prepare_image_u8`` reads ``image`` through Pillow: a path, a
+    PIL image, or an array (HW, HWC or CHW) off the (h, w) canvas."""
+    if isinstance(image, str) or hasattr(image, "getbands"):
+        return True
+    shape = np.shape(image)
+    return shape[:2] != (h, w) and not (len(shape) == 3 and shape[1:] == (h, w))
 
 
 class Predictor:
@@ -83,6 +121,11 @@ class Predictor:
         self.dtype = torch_dtype(cfg.hardware.compute_dtype)
         self._packed: Optional[Dict[str, Any]] = None
         self._packed_att: Optional[Dict[str, Any]] = None
+        self._pool: Optional[ThreadPoolExecutor] = None
+        # on the card: STAGING_SLOTS pinned host buffers of one canvas
+        # shape, each with the event recorded after its last upload
+        self._staged: List[Tuple[torch.Tensor, Optional[torch.cuda.Event]]] = []
+        self._slot = 0
 
     @classmethod
     def from_checkpoint(cls, path: str, step: Optional[int] = None, batch_size: int = 16,
@@ -130,9 +173,11 @@ class Predictor:
                       temperature: Optional[float] = None, top_k: Optional[int] = None,
                       top_p: Optional[float] = None, length_penalty: Optional[float] = None,
                       early_exit: Optional[bool] = None,
-                      selective_beam_frac: Optional[float] = None) -> DecodeConfig:
-        """The decode settings of ``cfg.inference`` with the given overrides."""
-        icfg = self.cfg.inference
+                      selective_beam_frac: Optional[float] = None,
+                      inference: Optional[InferenceConfig] = None) -> DecodeConfig:
+        """The decode settings of ``inference`` (default ``cfg.inference``)
+        with the given overrides."""
+        icfg = self.cfg.inference if inference is None else inference
 
         def pick(value, default):
             return default if value is None else value
@@ -155,18 +200,82 @@ class Predictor:
             dcfg = dataclasses.replace(dcfg, selective_beam_frac=0.0)
         return dcfg
 
+    def staging_buffer(self, shape: Tuple[int, ...]) -> np.ndarray:
+        """A host uint8 array of ``shape`` to prep canvases into.  On the card
+        it is a view of the next of ``STAGING_SLOTS`` pinned buffers, handed
+        out once that buffer's last upload has ended, and
+        :meth:`dispatch_canvases` uploads it without a further copy; on the
+        CPU it is a new array of zeros."""
+        shape = tuple(int(d) for d in shape)
+        if self.device.type != "cuda":
+            return np.zeros(shape, np.uint8)
+        if not self._staged or tuple(self._staged[0][0].shape) != shape:
+            for _, ev in self._staged:
+                if ev is not None:
+                    ev.synchronize()
+            self._staged = [(torch.empty(shape, dtype=torch.uint8, pin_memory=True), None)
+                            for _ in range(STAGING_SLOTS)]
+            self._slot = 0
+        buf, ev = self._staged[self._slot]
+        if ev is not None:
+            ev.synchronize()  # its last upload has been read
+        self._slot = (self._slot + 1) % STAGING_SLOTS
+        return buf.numpy()
+
+    def _upload(self, canvases: Any) -> torch.Tensor:
+        """Canvases (a host array or a tensor) -> a uint8 tensor on the device.
+        On the card a host array goes through a pinned staging buffer
+        (:meth:`staging_buffer`; copied into one unless it is one) with
+        ``non_blocking=True``, and an event recorded after the copy guards
+        the buffer's reuse."""
+        if isinstance(canvases, torch.Tensor):
+            return canvases.to(self.device, non_blocking=True)
+        arr = np.ascontiguousarray(canvases)
+        if self.device.type != "cuda" or arr.dtype != np.uint8:
+            return torch.from_numpy(arr).to(self.device)
+
+        def slot_of(a):
+            return next((i for i, (t, _) in enumerate(self._staged)
+                         if a.ctypes.data == t.data_ptr() and a.shape == tuple(t.shape)), None)
+
+        i = slot_of(arr)
+        if i is None:
+            view = self.staging_buffer(arr.shape)
+            view[...] = arr
+            i = slot_of(view)
+        buf = self._staged[i][0]
+        x = buf.to(self.device, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self._staged[i] = (buf, ev)
+        return x
+
     @torch.no_grad()
-    def decode_canvases(self, canvases_u8: np.ndarray, dcfg: Optional[DecodeConfig] = None,
-                        seed: int = 0) -> np.ndarray:
+    def decode_canvases(self, canvases_u8: Any, dcfg: Optional[DecodeConfig] = None,
+                        seed: int = 0, fetch: bool = True) -> Any:
         """uint8 (B, H, W, C) canvases -> token ids (B, dcfg.max_length) int32
         on the host, with ``dcfg`` (default :meth:`decode_config`); a
-        sampling decode draws with the int32 kernel ``seed``."""
+        sampling decode draws with the int32 kernel ``seed``: the dispatch
+        (:meth:`dispatch_canvases`), then the fetch (``.cpu()``).  With
+        ``fetch=False`` the dispatch alone, the tokens left on the device:
+        ``predict_batch`` and evaluate decode so, and fetch later."""
+        tokens = self.dispatch_canvases(canvases_u8, dcfg=dcfg, seed=seed)
+        return tokens.cpu().numpy() if fetch else tokens
+
+    @torch.no_grad()
+    def dispatch_canvases(self, canvases_u8: Any, dcfg: Optional[DecodeConfig] = None,
+                          seed: int = 0) -> torch.Tensor:
+        """uint8 (B, H, W, C) canvases (a host array, or a tensor such as a
+        view of a device-resident split) -> the token ids (B,
+        dcfg.max_length) int32 on the device: the upload, normalize, encode
+        and decode enqueued, with no wait for the card except early exit's
+        flag reads (module docstring)."""
         if dcfg is None:
             dcfg = self.decode_config()
         sample = dict(top_k=dcfg.top_k, seed=int(seed),
                       temperature=dcfg.temperature, top_p=dcfg.top_p, early_exit=dcfg.early_exit)
         icfg = self.cfg.preprocessing
-        x = torch.from_numpy(np.ascontiguousarray(canvases_u8)).to(self.device)
+        x = self._upload(canvases_u8)
         x = normalize_images(x, icfg.normalization_mean, icfg.normalization_std, self.dtype)
         memory = self.model.encode(x)
         packed = self.packed_decoder()
@@ -209,19 +318,51 @@ class Predictor:
             tokens[idx] = beam(idx)
         else:
             tokens = beam()
-        return tokens.cpu().numpy()
+        return tokens
+
+    def _prep_pool(self) -> Optional[ThreadPoolExecutor]:
+        """The shared thread pool of a chunk's image prep, ``min(8, cores)``
+        workers (Pillow's decode and resize release the GIL); None on one
+        core, where the chunk is prepped serially."""
+        n = os.cpu_count() or 1
+        if n <= 1:
+            return None
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=min(8, n))
+        return self._pool
+
+    def _prep_chunk(self, buf: np.ndarray, imgs: Sequence[Any],
+                    prep_one: Callable[[Any], np.ndarray]) -> np.ndarray:
+        """Prep ``imgs`` into the first rows of ``buf``: in the pool where
+        there is one and Pillow decodes or resizes an image of the chunk;
+        serially where every image is an array at the canvas size, whose
+        prep holds the GIL, so that threads only add their overhead (on the
+        card the pool took ``predict_batch`` of such arrays below the serial
+        loop; ``PERF.md``)."""
+        h, w = buf.shape[1:3]
+        pool = self._prep_pool() if any(_needs_pillow(img, h, w) for img in imgs) else None
+        if pool is not None and len(imgs) > 1:
+            for j, row in enumerate(pool.map(prep_one, imgs)):
+                buf[j] = row
+        else:
+            for j, img in enumerate(imgs):
+                buf[j] = prep_one(img)
+        return buf
 
     def predict_batch(self, images: Sequence[Any], beam_size: Optional[int] = None,
                       max_length: Optional[int] = None, temperature: Optional[float] = None,
                       top_k: Optional[int] = None, top_p: Optional[float] = None,
                       length_penalty: Optional[float] = None, early_exit: Optional[bool] = None,
                       batch_size: Optional[int] = None, seed: int = 0, return_ids: bool = False,
-                      selective_beam_frac: Optional[float] = None) -> List[Any]:
+                      selective_beam_frac: Optional[float] = None,
+                      stats: Optional[Dict[str, Any]] = None) -> List[Any]:
         """Decode ``images`` (paths, PIL images or arrays) in fixed batches of
         ``batch_size``; returns LaTeX strings, or id lists with ``return_ids``.
         The decode settings are ``cfg.inference``'s, with the keyword
         overrides of the JAX package's ``predict_batch``; a sampling decode
-        draws batch i with the kernel seed ``batch_seed(seed, i)``."""
+        draws batch i with the kernel seed ``batch_seed(seed, i)``.  The
+        batches run through :func:`decode_chunks` (module docstring), which
+        fills ``stats``; the host's trim and detokenize add ``post_s``."""
         dcfg = self.decode_config(beam_size=beam_size, max_length=max_length,
                                   temperature=temperature, top_k=top_k, top_p=top_p,
                                   length_penalty=length_penalty, early_exit=early_exit,
@@ -230,15 +371,33 @@ class Predictor:
         h, w, c = self.cfg.image_shape
         pad = self.cfg.preprocessing.pad_value
         tok = self.tokenizer
+
+        def run(buf: np.ndarray, kernel_seed: int) -> torch.Tensor:
+            return self.decode_canvases(buf, dcfg=dcfg, seed=kernel_seed, fetch=False)
+
+        def prep_one(img: Any) -> np.ndarray:
+            return prepare_image_u8(img, h, w, c, pad)
+
+        def make_prep(chunk: Sequence[Any]) -> Callable[[], np.ndarray]:
+            def prep() -> np.ndarray:
+                buf = self.staging_buffer((B, h, w, c))
+                buf[len(chunk):] = 0  # the zero canvases that pad a short last batch
+                return self._prep_chunk(buf, chunk, prep_one)
+
+            return prep
+
+        plan = [((B, None), run, make_prep(images[i : i + B]), range(i, min(i + B, len(images))))
+                for i in range(0, len(images), B)]
         results: List[Any] = []
-        for i in range(0, len(images), B):
-            chunk = images[i : i + B]
-            buf = np.zeros((B, h, w, c), dtype=np.uint8)
-            for j, img in enumerate(chunk):
-                buf[j] = prepare_image_u8(img, h, w, c, pad)
-            tokens = self.decode_canvases(buf, dcfg=dcfg, seed=batch_seed(seed, i // B))[: len(chunk)]
-            ids = trim_host(tokens, tok.end_token_id, tok.pad_token_id, start_id=tok.start_token_id)
+        t_post = 0.0
+        for idxs, tokens in decode_chunks(plan, seed, stats):
+            t0 = time.perf_counter()
+            ids = trim_host(tokens[: len(idxs)], tok.end_token_id, tok.pad_token_id,
+                            start_id=tok.start_token_id)
             results.extend(ids if return_ids else (tok.decode(r) for r in ids))
+            t_post += time.perf_counter() - t0
+        if stats is not None:
+            stats["post_s"] = stats.get("post_s", 0.0) + t_post
         return results
 
     def predict(self, image: Any, **kwargs) -> Any:

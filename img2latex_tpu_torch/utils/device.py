@@ -25,6 +25,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return dev
 
 
+def free_device_memory_bytes(fallback: Optional[int] = None,
+                             device: Optional[Union[str, torch.device]] = None) -> Optional[int]:
+    """Free memory of the card (``device``, default the current CUDA device)
+    in bytes from ``torch.cuda.mem_get_info``, or ``fallback`` for a CPU
+    device or where no card is available (the counterpart of
+    ``img2latex_tpu/utils/device.py::free_device_memory_bytes``)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return fallback
+    free, _ = torch.cuda.mem_get_info(dev)
+    return int(free)
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """'float32' | 'bfloat16' -> torch dtype."""
     table = {"float32": torch.float32, "bfloat16": torch.bfloat16}
