@@ -40,7 +40,19 @@ canvases at batch 512, streaming and device-cached, grid beam-5 over 512,
 each held against ``predict_batch`` on the same canvases and against the
 metrics recomputed on the host, the two loops against each other, and the
 pipelined ``predict_batch`` timed beside the serial loop it replaced; and
-each ``bench_*_torch.py`` once at a reduced batch (phase 22).
+each ``bench_*_torch.py`` once at a reduced batch (phase 22).  Then the
+ResNet-LSTM at ``bench_resnet.py``'s width (phases 23-26: 64x800x3,
+ResNet-50, E = H = 512, bf16): ``predict_batch`` greedy for vector memory
+(1024 canvases) and grid memory (S = 25 slots of 2 * 2048 features) against
+the plain decode, the encoder's and the decode's times; a ResNet-50 train
+step at B = 128 against the plain path in float32 and bf16, and its
+BatchNorm running buffers against flax's update of their inputs' float64
+statistics; and a frozen ResNet-18 ``Trainer.train()`` from a
+seeded pretrained npz with the device cache stored grayscale, a registry and
+a profiler trace.  Each ResNet path's launches of the decode and training
+kernels are counted from 0 over its own run, into keys of their own in the
+kernels line (``launches_resnet_vector``, ``_grid``, ``_train_step``,
+``_trainer``).
 
 The bf16 ``lstm_layer_step``, ``vocab_argmax_step``, attention ``h @ W_h``,
 conv-pool, ``vocab_sample_step``, ``beam_step`` and conv1-pool kernels run on
@@ -307,13 +319,14 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
 
 
 def compare_tokens(got: np.ndarray, ref: np.ndarray, margins: np.ndarray, dtype: str,
-                   grid: bool = False):
+                   grid: bool = False, m_tol: float = None, min_match: float = None):
     """Every row that differs must first differ at a step whose reference
     top-2 logit margin is <= the margin limit of ``dtype``; rows must agree
     on at least the row floor.  The limits are the vector decode's, or the
-    grid decode's with ``grid``."""
-    m_tol = (GRID_MARGIN_TOL if grid else MARGIN_TOL)[dtype]
-    min_match = (GRID_MIN_ROW_MATCH if grid else MIN_ROW_MATCH)[dtype]
+    grid decode's with ``grid``, unless ``m_tol`` and ``min_match`` name
+    others."""
+    m_tol = (GRID_MARGIN_TOL if grid else MARGIN_TOL)[dtype] if m_tol is None else m_tol
+    min_match = (GRID_MIN_ROW_MATCH if grid else MIN_ROW_MATCH)[dtype] if min_match is None else min_match
     diff = got != ref
     rows = np.where(diff.any(axis=1))[0]
     first = diff.argmax(axis=1)
@@ -3157,6 +3170,509 @@ def phase_bench_scripts(card: str) -> None:
         check(line["metric"] == metric and line["value"] > 0, f"{name}: {lines[0]}")
 
 
+# ---------------------------------------------------------------------------
+# The ResNet-LSTM (model.name = "resnet_lstm"): bench_resnet.py's shapes, greedy
+# through Predictor.predict_batch for both memory kinds, a ResNet-50 train step
+# against the plain path, and a frozen ResNet-18 Trainer.train().  The backbone
+# is cuDNN's convolutions and plain tensor ops (the JAX package's is XLA's, no
+# Pallas kernel); the decode and training kernels are those of the CNN's paths.
+# ---------------------------------------------------------------------------
+RESNET = "resnet50"
+RESNET_TRAINER = "resnet18"
+RESNET_GRID_S = (IMG_W + 31) // 32     # layer4 columns: 25 slots of H' * 2048 = 4096 features
+# BatchNorm running buffers after a step against 0.9 * before + 0.1 * the
+# statistics of each BatchNorm's input in float64 (two-pass variance), of
+# each buffer's largest magnitude: the module takes them in float32 as
+# E[x^2] - E[x]^2 over up to 128 * 32 * 400 values.
+RESNET_BN_RTOL = STEP_LOSS_RTOL
+FLAX_BN_MOMENTUM = 0.9
+# ResNet-50 greedy tokens, bf16, kernel vs plain decode on the same memory
+# (compare_tokens), both memory kinds: the vector decode's bf16 rule, margin
+# <= 2e-3 and >= 85% of rows equal.  Readings on the H100
+# (scripts/resnet_margins.py, 12 seeds a kind, and this phase's runs): the
+# largest parting margin 0.00038 (vector) and 0.000998 (grid, H = 512; the
+# CNN grid rule's 1e-3 was set at H = 384), the lowest row match 0.904 and
+# 0.906; the kernel decode bit-equal run to run.  Through attention steps
+# broken by a slot left out, the grid decode parts at margins of 0.0015-0.015
+# (broken_attend_step; the phase requires "first" and "last" to fail).
+RESNET_MARGIN_TOL = MARGIN_TOL["bfloat16"]
+RESNET_MIN_ROW_MATCH = MIN_ROW_MATCH["bfloat16"]
+RESNET_BROKEN_FAIL = ("first", "last")   # broken attention steps the grid rule must fail
+RESNET_BROKEN_LOGGED = ("stale", "norm")  # logged: they part at margins the rule lets through
+RESNET_TRAIN_N, RESNET_VAL_N = 4 * TRAIN_BATCH, 2 * TRAIN_BATCH  # the Trainer phase's splits
+RESNET_LAUNCH_KEYS = tuple(f"launches_resnet_{p}" for p in ("vector", "grid", "train_step", "trainer"))
+
+
+def resnet_config(name: str = RESNET, memory: str = "vector", train: bool = False):
+    """bench_resnet.py's configuration: 64x800x3, E = H = 512, 2 layers, vocab
+    503, 141 steps, bf16; with ``train`` bench_train.py's training settings."""
+    cfg = train_config() if train else grid_config()
+    cfg.model.name = "resnet_lstm"
+    cfg.model.memory = memory
+    cfg.model.encoder.resnet.model_name = name
+    cfg.model.encoder.resnet.img_height, cfg.model.encoder.resnet.img_width = IMG_H, IMG_W
+    cfg.model.embedding_dim = EMBED
+    cfg.model.decoder.hidden_dim = HIDDEN
+    cfg.data.max_seq_length = cfg.inference.max_length = MAX_LEN
+    cfg.hardware.compute_dtype = "bfloat16"
+    return cfg
+
+
+def calibrate_batch_norm(model, x) -> None:
+    """Set every BatchNorm's running statistics to those of the batch ``x``
+    (one train-mode pass with momentum 0), as a trained model's would be
+    those of its data; random weights with the init's (0, 1) leave the
+    activations unnormalized through 16 blocks."""
+    import torch
+
+    from img2latex_tpu_torch.models.resnet import BatchNorm
+
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.momentum = 0.0
+    with torch.no_grad():
+        model.encode(x, train=True)
+    for m in norms:
+        m.momentum = 0.9
+
+
+def log_encoder_profile(what: str, card: str, fn) -> None:
+    """Run ``fn`` (an encoder pass) once under torch.profiler and log its
+    device time by kernel group: cuDNN's convolutions, the BatchNorm
+    statistics' reductions, max pooling, and the elementwise passes (the
+    BatchNorm's float32 normalize and casts, ReLU, the residual adds)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    groups = (("convolutions (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "fprop", "dgrad", "wgrad", "sm90")),
+              ("reductions", ("reduce",)), ("max pool", ("max_pool", "maxpool")),
+              ("GEMM (head)", ("gemm", "cublas", "cutlass")),
+              ("elementwise", ("elementwise", "vectorized", "unrolled", "copy")))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    split = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or 0
+        if t <= 0 or getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        key = next((g for g, pats in groups if any(p in e.key.lower() for p in pats)), "other")
+        ms, n = split.get(key, (0.0, 0))
+        split[key] = (ms + t / 1e3, n + e.count)
+    busy = sum(ms for ms, _ in split.values())
+    if busy > 0:
+        log(f"{what} under torch.profiler: wall {wall:.2f} ms, device busy {busy:.2f} ms ({100 * busy / wall:.1f}%); "
+            f"by group (ms, launches, % of busy): "
+            f"{json.dumps({k: [round(ms, 3), n, round(100 * ms / busy, 1)] for k, (ms, n) in split.items()})} [{card}]")
+    else:
+        log(f"{what} under torch.profiler: no device time seen (not measured)")
+
+
+def _resnet_counters():
+    from img2latex_tpu_torch.ops.decode_step import lstm_layer_step, vocab_argmax_step
+    from img2latex_tpu_torch.ops.grid_decode import attend_step
+    from img2latex_tpu_torch.ops.lstm_train import lstm_seq_bwd, lstm_seq_fwd
+
+    return {"lstm_layer_step": lstm_layer_step, "vocab_argmax_step": vocab_argmax_step,
+            "attend_step": attend_step, "lstm_seq_fwd": lstm_seq_fwd, "lstm_seq_bwd": lstm_seq_bwd}
+
+
+def _count_resnet_launches(kernels: dict, path: str, what: str, fn, names) -> None:
+    """Run ``fn`` with the launch counts of ``names`` set to 0 just before and
+    read just after; each must have launched.  The counts go into the kernels
+    line under ``launches_resnet_<path>``, this path's own; ``launches`` stays
+    the count of the path that set it."""
+    import torch
+
+    counters = _resnet_counters()
+    torch.cuda.synchronize()
+    for n in names:
+        counters[n].launches = 0
+    fn()
+    torch.cuda.synchronize()
+    got = {n: counters[n].launches for n in names}
+    log(f"{what}: launches {json.dumps(got)}")
+    for n, c in got.items():
+        check(c > 0, f"kernel {n} was not launched on the {what} path")
+        kernels[n][f"launches_resnet_{path}"] = c
+
+
+def compare_resnet_tokens(got, ref, margins):
+    """compare_tokens in bf16 under the ResNet-50 rule."""
+    return compare_tokens(got, ref, margins, "bfloat16", m_tol=RESNET_MARGIN_TOL, min_match=RESNET_MIN_ROW_MATCH)
+
+
+def resnet_greedy_setup(dev, memory: str, seed: int, images):
+    """A ResNet-50 model of ``resnet_config(memory=memory)`` on the card with
+    weights and biases drawn from ``seed``, its BatchNorm calibrated on 64
+    of ``images`` (tiled to 3 channels, as the Predictor tiles them) and
+    END's bias tuned so that about half the rows of the first batch end:
+    (cfg, model, the batch's uint8 canvases, their normalized bf16 tensor,
+    the share of rows ending)."""
+    import torch
+
+    from img2latex_tpu_torch.models.seq2seq import build_model
+    from img2latex_tpu_torch.ops.decode_step import greedy_decode, pack_decoder_weights
+    from img2latex_tpu_torch.ops.grid_decode import grid_greedy_decode, grid_memory_proj, pack_attention_weights
+    from img2latex_tpu_torch.ops.preprocess import normalize_images
+
+    grid = memory == "grid"
+    rng = np.random.default_rng(seed)
+    cfg = resnet_config(memory=memory)
+    model = build_model(cfg, VOCAB, seed=seed)  # on the card: no device named
+    draw_biases(model, rng)
+    canv = np.stack([np.repeat(img, 3, axis=-1) for img in images[:BATCH]])
+    x = normalize_images(torch.from_numpy(canv).to(dev), cfg.preprocessing.normalization_mean,
+                         cfg.preprocessing.normalization_std, torch.bfloat16)
+    calibrate_batch_norm(model, x[:64])
+    with torch.no_grad():
+        mem0 = model.encode(x)
+
+    def ended_share():  # of the first batch's rows, by the kernel decode
+        packed0 = pack_decoder_weights(model.decoder, torch.bfloat16)
+        if grid:
+            att0 = pack_attention_weights(model.decoder, torch.bfloat16)
+            toks0 = grid_greedy_decode(packed0, att0, mem0, grid_memory_proj(att0, mem0), MAX_LEN, 1, END_ID, 0)
+        else:
+            toks0 = greedy_decode(packed0, mem0[:, 0, :], MAX_LEN, 1, END_ID, 0)
+        return float((toks0 == END_ID).any(dim=1).float().mean())
+
+    share = _tune_end_bias(model, ended_share)  # rows that end test the END -> PAD rule
+    return cfg, model, canv, x, share
+
+
+def resnet_decoders(model, mem, grid: bool):
+    """(kernel decode, plain decode with margins, decode through a given
+    attend function) of ``model``'s packed bf16 decoder on ``mem``."""
+    import torch
+
+    from img2latex_tpu_torch.ops import decode_step as ds
+    from img2latex_tpu_torch.ops import grid_decode as gd
+
+    packed = ds.pack_decoder_weights(model.decoder, torch.bfloat16)
+    if not grid:
+        v = mem[:, 0, :]
+        return (lambda: ds.greedy_decode(packed, v, MAX_LEN, 1, END_ID, 0),
+                lambda: ds.greedy_decode_plain(packed, v, MAX_LEN, 1, END_ID, 0, return_margins=True), None)
+    att = gd.pack_attention_weights(model.decoder, torch.bfloat16)
+    u = gd.grid_memory_proj(att, mem)
+    return (lambda: gd.grid_greedy_decode(packed, att, mem, u, MAX_LEN, 1, END_ID, 0),
+            lambda: gd.grid_greedy_decode_plain(packed, att, mem, u, MAX_LEN, 1, END_ID, 0, return_margins=True),
+            lambda attend: gd._grid(ds.lstm_layer_step, ds.vocab_argmax_step, attend, packed, att, mem, u,
+                                    MAX_LEN, 1, END_ID, 0, False, False, "logp"))
+
+
+def broken_attend_step(mode: str):
+    """The attend_step wrapper broken: "first" attends over all memory slots
+    but the first and "last" over all but the last (an off-by-one in the slot
+    loop; the last column is white on most canvases), "stale" returns the
+    context of the step before from the second step on (a missed ordering),
+    "norm" scales the context by 1 + 2^-6 (weights that sum to 1.016)."""
+    from img2latex_tpu_torch.ops.grid_decode import attend_step
+
+    state = {}
+
+    def attend(h, w_h, v, u, mem, ctx, hw=None, rows_per_mem: int = 1):
+        if mode in ("first", "last"):
+            if "u" not in state:
+                keep = slice(1, None) if mode == "first" else slice(None, -1)
+                state["u"], state["mem"] = u[:, keep].contiguous(), mem[:, keep].contiguous()
+            return attend_step(h, w_h, v, state["u"], state["mem"], ctx, hw, rows_per_mem)
+        attend_step(h, w_h, v, u, mem, ctx, hw, rows_per_mem)
+        if mode == "norm":
+            return ctx.mul_(1 + 2.0**-6)
+        prev, state["prev"] = state.get("prev"), ctx.clone()
+        return ctx if prev is None else ctx.copy_(prev)
+
+    return attend
+
+
+def phase_resnet_greedy(dev, card: str, tokenizer, images, kernels: dict, memory: str) -> None:
+    """A ResNet-50 Predictor.predict_batch at bench_resnet.py's width (vector:
+    N_IMAGES canvases; grid: one batch, S = 25 slots of 2 * 2048 features),
+    its tokens against the plain decode on the same memory (the ResNet rule,
+    RESNET_MARGIN_TOL and RESNET_MIN_ROW_MATCH), and the encoder's and the
+    decode's times; for grid also decodes through broken attention steps,
+    of which RESNET_BROKEN_FAIL's must fail the rule."""
+    import torch
+
+    from img2latex_tpu_torch.training.predictor import Predictor
+
+    t_phase = time.perf_counter()
+    grid = memory == "grid"
+    cfg, model, canv, x, share = resnet_greedy_setup(dev, memory, SEED + 50 + int(grid), images)
+    pred = Predictor(cfg, model, tokenizer, batch_size=BATCH)  # on the card
+    run = images if not grid else images[:BATCH]
+    pred.predict_batch(run[:BATCH], return_ids=True)  # warm-up (cuDNN plans, packing)
+    names = ["attend_step"] if grid else []
+    names += ["lstm_layer_step", "vocab_argmax_step"]
+    out = {}
+
+    def drive():
+        t0 = time.perf_counter()
+        out["ids"] = pred.predict_batch(run, return_ids=True)
+        torch.cuda.synchronize()
+        out["wall"] = time.perf_counter() - t0
+
+    _count_resnet_launches(kernels, memory, f"{RESNET} {memory} greedy predict_batch", drive, names)
+    ids, wall = out["ids"], out["wall"]
+    check(len(ids) == len(run) and all(len(r) <= MAX_LEN for r in ids), f"{RESNET} {memory} predict_batch output")
+    check(all(tokenizer.end_token_id not in r and all(0 <= t < VOCAB for t in r) for r in ids),
+          f"{RESNET} {memory} trimmed ids")
+
+    toks = pred.decode_canvases(canv)
+    is_end = toks == tokenizer.end_token_id
+    after = np.cumsum(is_end, axis=1) - is_end > 0
+    check(bool((toks[after] == tokenizer.pad_token_id).all()), f"{RESNET} {memory}: a token other than PAD follows END")
+    with torch.no_grad():
+        mem = model.encode(x)
+        check(tuple(mem.shape) == ((BATCH, RESNET_GRID_S, EMBED) if grid else (BATCH, 1, EMBED)),
+              f"{RESNET} {memory} memory {tuple(mem.shape)}")
+        check(bool(torch.isfinite(mem.float()).all()), f"non-finite {RESNET} {memory} memory")
+        decode, plain, through = resnet_decoders(model, mem, grid)
+        ref, margins = plain()
+        ref, margins = ref.cpu().numpy(), margins.cpu().numpy()
+        if not grid:
+            log_encoder_profile(f"{RESNET} encoder, eval (B={BATCH}, bf16)", card, lambda: model.encode(x))
+        ms_feat = time_ms(lambda: model.encoder.features(x), iters=3, warmup=1)
+        ms_enc = time_ms(lambda: model.encode(x), iters=3, warmup=1)
+        ms_dec = time_ms(decode, iters=3, warmup=1)
+    ok, stats = compare_resnet_tokens(toks, ref, margins)
+    spread = float(mem.float().std(dim=0).mean())
+    log(f"{RESNET} {memory} greedy predict_batch: {len(run)} images in {wall:.3f} s = {len(run) / wall:.1f} images/s "
+        f"(batch {BATCH}, bf16, 64x800x3, E=H={EMBED}); a batch of {BATCH} alone: backbone {ms_feat:.3f} ms, encoder "
+        f"{ms_enc:.3f} ms (head {ms_enc - ms_feat:.3f}), decode {ms_dec:.3f} ms, encoder share "
+        f"{100 * ms_enc / (ms_enc + ms_dec):.1f}%; memory spread over the batch {spread:.3g}, END's bias tuned to "
+        f"{share:.3f} of the rows ending; tokens vs plain decode "
+        f"{json.dumps(stats)}; phase wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+    check(ok, f"{RESNET} {memory} greedy disagrees with the plain path: {stats}")
+    if grid:  # the rule fails a decode through a broken attention step
+        for mode in RESNET_BROKEN_FAIL + RESNET_BROKEN_LOGGED:
+            with torch.no_grad():
+                bad = through(broken_attend_step(mode)).cpu().numpy()
+            bad_ok, bstats = compare_resnet_tokens(bad, ref, margins)
+            log(f"{RESNET} grid rule against a broken attend_step ({mode}): fails {not bad_ok}; "
+                + json.dumps({k: bstats[k] for k in ("rows_differ", "row_match", "max_margin_at_first_diff")}))
+            if mode in RESNET_BROKEN_FAIL:
+                check(not bad_ok, f"the {RESNET} grid rule passes a decode through a broken attend_step ({mode})")
+
+
+def phase_resnet_train_step(dev, card: str, kernels: dict) -> None:
+    """A ResNet-50 train step at bench_train.py's settings (B = 128, dropout
+    0.3) on three-channel canvases, against the plain path in float32 and
+    bf16: the loss, the gradient norm, every gradient and the parameters
+    (the train phase's rules) and the BatchNorm running buffers
+    (RESNET_BN_RTOL of each buffer's largest magnitude); then its time."""
+    import torch
+
+    from img2latex_tpu_torch.models.seq2seq import build_model
+    from img2latex_tpu_torch.training.optim import build_optimizer
+    from img2latex_tpu_torch.training.steps import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        cfg = resnet_config(train=True)
+        cfg.hardware.compute_dtype = dtype
+        batch = _train_batch(cfg, seed=SEED + 60)
+        check(batch["images"].shape[-1] == 3, "the ResNet train batch is not three-channel")
+        torch.cuda.reset_peak_memory_stats()
+        _compare_steps(f"{RESNET} train step ({dtype}, B={TRAIN_BATCH}, dropout {TRAIN_DROPOUT})",
+                       _step_pair(cfg, batch))
+        log(f"{RESNET} train step ({dtype}): peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    model = build_model(cfg, VOCAB, seed=SEED)
+    state = create_train_state(model, build_optimizer(cfg, model), cfg)
+    step = make_train_step(cfg, 0)
+    dbatch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    with batch_norm_reference(model) as expect:
+        _count_resnet_launches(kernels, "train_step", f"{RESNET} train step", lambda: step(state, dbatch),
+                               ["lstm_seq_fwd", "lstm_seq_bwd"])
+    errs = {n: rel_err(b, expect[n]) for n, b in model.named_buffers()}
+    worst = max(errs, key=errs.get)
+    log(f"{RESNET} train step (bfloat16): {len(errs)} BatchNorm buffers after the step against the float64 "
+        f"update of their inputs' statistics, worst {worst} off by {errs[worst]:.3g} of its largest magnitude "
+        f"(tol {RESNET_BN_RTOL})")
+    check(len(expect) == len(errs), f"{len(errs) - len(expect)} BatchNorm buffers saw no train-mode input")
+    check(errs[worst] <= RESNET_BN_RTOL, f"{RESNET} train step: buffer {worst} off by {errs[worst]}")
+    _time_train_step(f"{RESNET} encoder, 64x800x3", card, step, state, dbatch, steps=5)  # ms a step, profiler split
+    log(f"{RESNET} train step phase wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+@contextlib.contextmanager
+def batch_norm_reference(model):
+    """While open, each train-mode call of a BatchNorm of ``model`` records
+    its input's per-channel mean and biased variance in float64 (two-pass);
+    the dict yielded is filled, on close, with each running buffer's
+    expected value, flax's ``0.9 * before + 0.1 * batch``, by buffer name.  A
+    module called more than once fails the check."""
+    import torch
+
+    from img2latex_tpu_torch.models.resnet import BatchNorm
+
+    seen, handles = {}, []
+
+    def hook(name):
+        def pre(mod, args):
+            x, train = args[0], (args[1] if len(args) > 1 else False)
+            if train:
+                check(name not in seen, f"BatchNorm {name} ran twice in train mode")
+                xd = x.detach().double()
+                mean = xd.mean(dim=(0, 2, 3))
+                var = (xd - mean[:, None, None]).pow(2).mean(dim=(0, 2, 3))
+                seen[name] = (mean, var)
+        return pre
+
+    before = {n: b.detach().double().clone() for n, b in model.named_buffers()}
+    for name, mod in model.named_modules():
+        if isinstance(mod, BatchNorm):
+            handles.append(mod.register_forward_pre_hook(hook(name)))
+    expect = {}
+    try:
+        yield expect
+    finally:
+        for h in handles:
+            h.remove()
+    m = FLAX_BN_MOMENTUM
+    for name, (mean, var) in seen.items():
+        for buf, stat in (("running_mean", mean), ("running_var", var)):
+            key = f"{name}.{buf}"
+            expect[key] = m * before[key] + (1 - m) * stat
+
+
+def seeded_backbone_npz(path: str, backbone, seed: int) -> dict:
+    """A converted npz (the JAX package's flax paths and layouts) of
+    ``backbone``'s shapes, drawn from ``seed``."""
+    import torch
+
+    from img2latex_tpu_torch.models.resnet import BatchNorm
+
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for name, mod in backbone.named_modules():
+        prefix = name.replace(".", "/")
+        if isinstance(mod, torch.nn.Conv2d):
+            o, i, kh, kw = mod.weight.shape
+            flat[f"{prefix}/kernel"] = (rng.standard_normal((kh, kw, i, o)) / np.sqrt(kh * kw * i)).astype(np.float32)
+        elif isinstance(mod, BatchNorm):
+            n = mod.weight.shape[0]
+            flat[f"{prefix}/scale"] = (1 + 0.1 * rng.standard_normal(n)).astype(np.float32)
+            flat[f"{prefix}/bias"] = (0.1 * rng.standard_normal(n)).astype(np.float32)
+            flat[f"{prefix}/mean"] = (0.1 * rng.standard_normal(n)).astype(np.float32)
+            flat[f"{prefix}/var"] = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    np.savez(path, **flat)
+    return flat
+
+
+def phase_resnet_trainer(dev, card: str, tokenizer, kernels: dict, tmp: str, epochs: int = 2) -> None:
+    """Trainer.train() of a frozen ResNet-18 from a pretrained npz written
+    from a seed, 2 epochs of 4 steps at B = 128 over a canvas-cache split
+    (numpy-drawn formulas), with data.device_cache and
+    data.device_cache_grayscale, a registry and hardware.profile: the
+    backbone outside layer4 must come out bit-equal to the npz and layer4
+    must move; the registry must say completed with both epochs' metrics;
+    the enhanced-metrics files and the trace must exist."""
+    import torch
+
+    from img2latex_tpu_torch.data.pipeline import BatchLoader, Im2LatexDataset, read_formulas
+    from img2latex_tpu_torch.models.seq2seq import build_model
+    from img2latex_tpu_torch.training.trainer import Trainer
+    from img2latex_tpu_torch.utils.paths import PathManager
+    from img2latex_tpu_torch.utils.registry import ExperimentRegistry
+
+    t_phase = time.perf_counter()
+    cfg = resnet_config(RESNET_TRAINER, train=True)
+    root = os.path.join(tmp, "resnet_corpus")
+    cfg.data.data_dir = root
+    cache_dir = write_canvas_corpus(root, tokenizer, RESNET_TRAIN_N + RESNET_VAL_N, cfg, seed=SEED + 70)
+    ds = Im2LatexDataset(os.path.join(root, cfg.data.test_file),
+                         read_formulas(os.path.join(root, cfg.data.formulas_file)),
+                         os.path.join(root, cfg.data.img_dir), tokenizer, img_size=(IMG_H, IMG_W), channels=3,
+                         canvas_cache_dir=cache_dir)
+
+    class Rows:  # a split of ds's rows [lo, hi), as a dataset
+        def __init__(self, lo, hi):
+            self.lo, self.hi = lo, hi
+            self.img_size, self.channels, self.tokenizer = ds.img_size, ds.channels, ds.tokenizer
+
+        def __len__(self):
+            return self.hi - self.lo
+
+        def image(self, i):
+            return ds.image(self.lo + i)
+
+        def token_ids(self, i):
+            return ds.token_ids(self.lo + i)
+
+        def __getitem__(self, i):
+            return self.image(i), self.token_ids(i)
+
+    loaders = {"train": BatchLoader(Rows(0, RESNET_TRAIN_N), TRAIN_BATCH, shuffle=True, drop_last=True, seed=1),
+               "validate": BatchLoader(Rows(RESNET_TRAIN_N, RESNET_TRAIN_N + RESNET_VAL_N), TRAIN_BATCH)}
+    probe = build_model(cfg, VOCAB, seed=SEED)
+    npz = os.path.join(tmp, "backbone.npz")
+    flat = seeded_backbone_npz(npz, probe.encoder.backbone, seed=SEED + 71)
+    del probe
+    cfg.model.encoder.resnet.pretrained_path = npz
+    cfg.model.encoder.resnet.freeze_backbone = True
+    cfg.data.device_cache = cfg.data.device_cache_grayscale = True
+    cfg.hardware.profile = True
+    cfg.training.epochs = epochs
+    cfg.evaluation.bleu_batches = 1
+    paths = PathManager(tmp)
+    registry = ExperimentRegistry(paths)
+    name = "resnet18_frozen"
+    trainer = Trainer(cfg, tokenizer, loaders, paths=paths, registry=registry, experiment_name=name)  # on the card
+    out = {}
+
+    def drive():
+        t0 = time.perf_counter()
+        out["result"] = trainer.train()
+        torch.cuda.synchronize()
+        out["wall"] = time.perf_counter() - t0
+
+    _count_resnet_launches(kernels, "trainer", f"frozen {RESNET_TRAINER} Trainer.train()", drive,
+                           ["lstm_seq_fwd", "lstm_seq_bwd"])
+    hist = out["result"]["history"]
+    losses = [hist[e]["train_loss"] for e in sorted(hist)]
+    log(f"frozen {RESNET_TRAINER} Trainer.train(): {epochs} epochs of {RESNET_TRAIN_N // TRAIN_BATCH} steps "
+        f"(B={TRAIN_BATCH}, bf16, device cache of {tuple(trainer._device_cache['images'].shape)} uint8) in "
+        f"{out['wall']:.2f} s; train loss by epoch {losses}, val loss {[hist[e]['val_loss'] for e in sorted(hist)]}, "
+        f"{hist[max(hist)]['train_images_per_sec']:.1f} images/s in the last epoch [{card}]")
+    check(all(np.isfinite(losses)), "frozen Trainer: non-finite loss")
+    check(trainer._device_cache["images"].shape[-1] == 1, "device_cache_grayscale stored more than 1 channel")
+    sd = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    moved, layer4_moved = [], False
+    for path, src in flat.items():
+        mod, leaf = path.rsplit("/", 1)
+        if leaf in ("mean", "var"):
+            continue
+        key = f"encoder.backbone.{mod.replace('/', '.')}.{'bias' if leaf == 'bias' else 'weight'}"
+        value = sd[key].numpy()
+        if leaf == "kernel":
+            value = value.transpose(2, 3, 1, 0)
+        if path.startswith("layer4"):
+            layer4_moved |= not np.array_equal(value, src)
+        elif not np.array_equal(value, src):
+            moved.append(path)
+    check(not moved, f"frozen backbone parameters moved: {moved[:5]}")
+    check(layer4_moved, "layer4 did not train in the frozen regime")
+    entry = registry.get(name)
+    check(entry is not None and entry["status"] == "completed", f"registry status {entry and entry['status']}")
+    check(sorted(entry["metrics"]["steps"]) == [str(e) for e in range(1, epochs + 1)],
+          f"registry epochs {sorted(entry['metrics']['steps'])}")
+    mdir = paths.get_dir(name, "metrics")
+    for e in range(1, epochs + 1):
+        check((mdir / f"{name}_enhanced_metrics_epoch_{e}.json").exists(), f"no enhanced metrics for epoch {e}")
+    trace = paths.get_dir(name, "logs") / "traces" / "train_epoch0" / "trace.json"
+    check(trace.exists() and trace.stat().st_size > 0, "no profiler trace")
+    log(f"frozen {RESNET_TRAINER}: backbone outside layer4 bit-equal to the npz ({len(flat)} arrays), layer4 moved; "
+        f"registry {entry['status']} with epochs {sorted(entry['metrics']['steps'])}; trace {trace.stat().st_size / 2**20:.1f} "
+        f"MiB; phase wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def _build_dir():
     from img2latex_tpu_torch.ops import _build
 
@@ -3493,6 +4009,16 @@ def main() -> int:
     # ---- phase 22: the bench scripts, each once at a reduced batch -------------------
     phase_bench_scripts(card)
 
+    # ---- phases 23-26: the ResNet-LSTM -----------------------------------------------
+    t_resnet = time.perf_counter()
+    torch.cuda.empty_cache()
+    phase_resnet_greedy(dev, card, tokenizer, gimages, kernels, "vector")
+    phase_resnet_greedy(dev, card, tokenizer, gimages, kernels, "grid")
+    phase_resnet_train_step(dev, card, kernels)
+    with tempfile.TemporaryDirectory(dir=str(_build_dir())) as resnet_tmp:
+        phase_resnet_trainer(dev, card, tokenizer, kernels, resnet_tmp)
+    log(f"ResNet phases 23-26 wall time {time.perf_counter() - t_resnet:.1f} s")
+
     # ---- report --------------------------------------------------------------
     log(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s (build included)")
     order = ("conv1_pool", "conv1_pool[bias=0]", "lstm_layer_step", "vocab_argmax_step", "attend_step",
@@ -3510,10 +4036,16 @@ def main() -> int:
     # beside its device time.  plan_route: the route conv1_plan names at the
     # row's shape ("tc"), else null; ms_cuda_core: the CUDA-core conv1-pool
     # kernel's time at the same shape in this run (core_route), else null.
+    # launches_resnet_vector, _grid, _train_step, _trainer: the launches of
+    # the ResNet paths of phases 23-26, each counted from 0 over its own run
+    # (vector and grid greedy predict_batch, the ResNet-50 train step, the
+    # frozen ResNet-18 Trainer.train()), else null; launches does not hold them.
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "max_abs_err_bf16", "ms",
             "ms_eager", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_method", "plain_ms_method", "parts",
-            "plan_route", "ms_cuda_core")
+            "plan_route", "ms_cuda_core") + RESNET_LAUNCH_KEYS
     for n in order:
+        for k in RESNET_LAUNCH_KEYS:
+            kernels[n].setdefault(k, None)
         kernels[n].setdefault("max_abs_err_bf16", None)
         kernels[n].setdefault("plan_route", None)
         kernels[n].setdefault("ms_cuda_core", None)

@@ -12,18 +12,27 @@ module imports no JAX.  The mapping:
   this port's (c, h, w) of NCHW; the grid head's rows are (h·C + c) in
   both, so it is only transposed;
 * the attention's ``attn`` kernel (H+E, A), h rows first, and ``v`` (A, 1)
-  transposed into ``attn.weight`` (A, H+E) and ``v.weight`` (1, A).
+  transposed into ``attn.weight`` (A, H+E) and ``v.weight`` (1, A);
+* the ResNet encoder: every ``encoder/backbone/<module path>`` conv kernel
+  HWIO -> OIHW and BatchNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``,
+  the ``batch_stats`` tree's ``mean`` / ``var`` -> the ``running_mean`` /
+  ``running_var`` buffers (flax keeps the biased variance, and so does the
+  port's BatchNorm), and the head ``encoder/Dense_0`` transposed: its vector
+  rows are the pooled features, its grid rows (h·F + f) in both packages.
 
-Every leaf must be used and every parameter of the module set; either
-failure raises.
+Every leaf must be used and every parameter and buffer of the module set;
+either failure raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from img2latex_tpu_torch.models.encoder import ResNetEncoder
+from img2latex_tpu_torch.models.resnet import BatchNorm
 
 
 def _flat(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -37,15 +46,35 @@ def _flat(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def params_from_flax(tree: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
+def _cnn_head_rows(enc, kern: np.ndarray) -> np.ndarray:
+    """The CNN's vector head rows from the JAX (h, w, c) flatten order to the
+    port's (c, h, w); the grid head's rows as they are."""
+    if enc.output != "vector":
+        return kern
+    C, Hf, Wf = enc.feature_shape
+    if kern.shape[0] != C * Hf * Wf:  # (Hf*Wf*C, E)
+        raise ValueError(f"head kernel has {kern.shape[0]} rows, the encoder flattens {C * Hf * Wf}")
+    return kern.reshape(Hf, Wf, C, -1).transpose(2, 0, 1, 3).reshape(C * Hf * Wf, -1)
+
+
+def params_from_flax(tree: Mapping[str, Any], model,
+                     batch_stats: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
     """Map ``tree`` onto ``model`` (a :class:`~img2latex_tpu_torch.models.seq2seq.Seq2SeqModel`).
 
-    Returns a float32 state_dict on the CPU with exactly the model's keys and
-    shapes; raises ``KeyError`` for a leaf left unused or a parameter left
-    unset, ``ValueError`` for a shape that does not fit."""
+    ``tree`` is the params tree or a variables dict (``{"params": ...,
+    "batch_stats": ...}``); ``batch_stats`` (the ResNet's running
+    statistics) may also be given apart.  Returns a float32 state_dict on
+    the CPU with exactly the model's keys and shapes; raises ``KeyError``
+    for a leaf left unused or a parameter or buffer left unset,
+    ``ValueError`` for a shape that does not fit."""
+    if batch_stats is None and isinstance(tree.get("batch_stats"), Mapping):
+        batch_stats = tree["batch_stats"]
     if "params" in tree and isinstance(tree["params"], Mapping):
         tree = tree["params"]
+    if batch_stats is not None and "batch_stats" in batch_stats:
+        batch_stats = batch_stats["batch_stats"]
     leaves = _flat(tree)
+    leaves.update({f"batch_stats/{k}": v for k, v in _flat(batch_stats or {}).items()})
     used = set()
 
     def take(path: str) -> np.ndarray:
@@ -56,15 +85,23 @@ def params_from_flax(tree: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
 
     sd: Dict[str, np.ndarray] = {}
     enc = model.encoder
-    for i in range(len(enc.convs)):
-        sd[f"encoder.convs.{i}.weight"] = take(f"encoder/Conv_{i}/kernel").transpose(3, 2, 0, 1)
-        sd[f"encoder.convs.{i}.bias"] = take(f"encoder/Conv_{i}/bias")
-    C, Hf, Wf = enc.feature_shape
-    kern = take("encoder/Dense_0/kernel")
-    if enc.output == "vector":  # (Hf*Wf*C, E), rows in (h, w, c) order
-        if kern.shape[0] != C * Hf * Wf:
-            raise ValueError(f"head kernel has {kern.shape[0]} rows, the encoder flattens {C * Hf * Wf}")
-        kern = kern.reshape(Hf, Wf, C, -1).transpose(2, 0, 1, 3).reshape(C * Hf * Wf, -1)
+    if isinstance(enc, ResNetEncoder):
+        for name, mod in enc.backbone.named_modules():
+            path = "encoder/backbone/" + name.replace(".", "/")
+            key = "encoder.backbone." + name
+            if isinstance(mod, torch.nn.Conv2d):
+                sd[f"{key}.weight"] = take(f"{path}/kernel").transpose(3, 2, 0, 1)
+            elif isinstance(mod, BatchNorm):
+                sd[f"{key}.weight"] = take(f"{path}/scale")
+                sd[f"{key}.bias"] = take(f"{path}/bias")
+                sd[f"{key}.running_mean"] = take(f"batch_stats/{path}/mean")
+                sd[f"{key}.running_var"] = take(f"batch_stats/{path}/var")
+        kern = take("encoder/Dense_0/kernel")  # (F, E) vector, (H'*F, E) grid: the port's rows already
+    else:
+        for i in range(len(enc.convs)):
+            sd[f"encoder.convs.{i}.weight"] = take(f"encoder/Conv_{i}/kernel").transpose(3, 2, 0, 1)
+            sd[f"encoder.convs.{i}.bias"] = take(f"encoder/Conv_{i}/bias")
+        kern = _cnn_head_rows(enc, take("encoder/Dense_0/kernel"))
     sd["encoder.head.weight"] = kern.T
     sd["encoder.head.bias"] = take("encoder/Dense_0/bias")
 
@@ -88,7 +125,7 @@ def params_from_flax(tree: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
     expected = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     missing = sorted(set(expected) - set(sd))
     if missing:
-        raise KeyError(f"module parameters left unset: {missing}")
+        raise KeyError(f"module parameters or buffers left unset: {missing}")
     for k, v in sd.items():
         if k not in expected:
             raise KeyError(f"no module parameter named {k!r}")
@@ -97,7 +134,7 @@ def params_from_flax(tree: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in sd.items()}
 
 
-def load_flax_params(model, tree: Mapping[str, Any]):
-    """Load ``tree`` into ``model`` in place (strict) and return the model."""
-    model.load_state_dict(params_from_flax(tree, model), strict=True)
+def load_flax_params(model, tree: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None):
+    """Load ``tree`` (and ``batch_stats``) into ``model`` in place (strict) and return the model."""
+    model.load_state_dict(params_from_flax(tree, model, batch_stats), strict=True)
     return model

@@ -1,9 +1,10 @@
 """Typed configuration tree for the PyTorch port.
 
 A copy of the schema of ``img2latex_tpu/config.py`` cut to the sections the
-port reads: data, model (encoder, decoder), training, evaluation, inference,
-preprocessing and the compute-type and encoder-chain settings of
-``hardware``.  Keys this schema does not know are ignored by
+port reads: data, model (the CNN and ResNet encoders, the decoder),
+training, evaluation, inference, preprocessing, ``logging``'s enhanced-metrics
+cadence and the compute-type, encoder-chain, profiling and NaN-check settings
+of ``hardware``.  Keys this schema does not know are ignored by
 :func:`config_from_dict` (``strict=False``), so a config dict written by the
 JAX package loads unchanged.
 
@@ -42,7 +43,12 @@ class DataConfig:
     # evaluate: upload the split once as uint8 to the card and decode from
     # device-side batch views; a split over the budget streams instead
     device_cache: bool = False
-    device_cache_budget_gb: Optional[float] = None  # None: half the card's free memory
+    device_cache_budget_gb: Optional[float] = None  # None: a share of the card's free memory
+    # Store a device cache as 1 channel where the model takes 3 (ResNet) and
+    # tile the gathered batch on the card: 3x less memory.  Exact for
+    # grayscale sources; an image whose channels differ makes the cache
+    # store every channel.
+    device_cache_grayscale: bool = False
 
 
 @dataclass
@@ -56,8 +62,19 @@ class CNNEncoderConfig:
 
 
 @dataclass
+class ResNetEncoderConfig:
+    img_height: int = 64
+    img_width: int = 800
+    channels: int = 3
+    model_name: str = "resnet50"
+    freeze_backbone: bool = False  # train only layer4 of the backbone, the head and the decoder
+    pretrained_path: Optional[str] = None  # converted torchvision weights (.npz, flax names)
+
+
+@dataclass
 class EncoderConfig:
     cnn: CNNEncoderConfig = field(default_factory=CNNEncoderConfig)
+    resnet: ResNetEncoderConfig = field(default_factory=ResNetEncoderConfig)
 
 
 @dataclass
@@ -70,7 +87,7 @@ class DecoderConfig:
 
 @dataclass
 class ModelConfig:
-    name: str = "cnn_lstm"  # the only model ported; "resnet_lstm" comes later
+    name: str = "cnn_lstm"  # "cnn_lstm" | "resnet_lstm"
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     embedding_dim: int = 512
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
@@ -99,6 +116,9 @@ class TrainingConfig:
 class EvaluationConfig:
     bleu_n: int = 4
     bleu_batches: int = 10  # validation batches whose teacher-forced argmax feeds BLEU and Levenshtein
+    enhanced_samples: int = 2  # rows dumped token by token into the enhanced-metrics file
+    save_basic_metrics: bool = True  # metrics.json per epoch where no registry is given
+    detailed_eval_frequency: int = 1
 
 
 @dataclass
@@ -118,6 +138,11 @@ class InferenceConfig:
 
 
 @dataclass
+class LoggingConfig:
+    detailed_eval_frequency: int = 1  # epochs between the trainer's enhanced-metrics files
+
+
+@dataclass
 class PreprocessingConfig:
     pad_value: int = 255
     normalization_mean: List[float] = field(default_factory=lambda: [0.485, 0.456, 0.406])
@@ -134,6 +159,8 @@ class HardwareConfig:
     # kernel (bias in float32, one rounding), as the JAX package's
     # hardware.pallas_chain; off by default there and here.
     pallas_chain: bool = False
+    profile: bool = False  # a torch.profiler trace of the first epoch under logs/traces/
+    debug_nans: bool = False  # raise at the first non-finite loss or gradient
 
 
 @dataclass
@@ -144,6 +171,7 @@ class Config:
     evaluation: EvaluationConfig = field(default_factory=EvaluationConfig)
     inference: InferenceConfig = field(default_factory=InferenceConfig)
     preprocessing: PreprocessingConfig = field(default_factory=PreprocessingConfig)
+    logging: LoggingConfig = field(default_factory=LoggingConfig)
     hardware: HardwareConfig = field(default_factory=HardwareConfig)
 
     def to_dict(self) -> Dict[str, Any]:
@@ -151,8 +179,8 @@ class Config:
 
     @property
     def image_shape(self) -> Tuple[int, int, int]:
-        """(height, width, channels) of the canvas (NHWC)."""
-        enc = self.model.encoder.cnn
+        """(height, width, channels) of the canvas (NHWC) of the model's encoder."""
+        enc = self.model.encoder.resnet if self.model.name == "resnet_lstm" else self.model.encoder.cnn
         return (enc.img_height, enc.img_width, enc.channels)
 
 
@@ -225,8 +253,13 @@ def set_by_path(cfg: Config, dotted: str, value: Any) -> None:
 
 
 def validate_config(cfg: Config) -> None:
-    if cfg.model.name != "cnn_lstm":
-        raise ValueError(f"model.name must be cnn_lstm (the only model ported), got {cfg.model.name!r}")
+    if cfg.model.name not in ("cnn_lstm", "resnet_lstm"):
+        raise ValueError(f"model.name must be cnn_lstm or resnet_lstm, got {cfg.model.name!r}")
+    if cfg.model.name == "resnet_lstm":
+        valid = ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152")
+        if cfg.model.encoder.resnet.model_name not in valid:
+            raise ValueError(f"encoder.resnet.model_name must be one of {valid}, "
+                             f"got {cfg.model.encoder.resnet.model_name!r}")
     if cfg.model.memory not in ("vector", "grid"):
         raise ValueError(f"model.memory must be vector or grid, got {cfg.model.memory!r}")
     if cfg.data.max_seq_length < 3:

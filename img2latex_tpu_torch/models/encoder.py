@@ -1,4 +1,7 @@
-"""CNN image encoder (counterpart of ``img2latex_tpu/models/encoder.py::CNNEncoder``).
+"""Image encoders (counterparts of ``img2latex_tpu/models/encoder.py``'s
+``CNNEncoder`` and ``ResNetEncoder``).
+
+:class:`CNNEncoder`:
 
 Each block is conv3x3 (SAME) + ReLU + maxpool 2x2; a Dense head + ReLU maps
 the feature map to the memory:
@@ -38,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from img2latex_tpu_torch.models.resnet import ResNetBackbone, feature_dim, feature_hw
 from img2latex_tpu_torch.ops.conv1_phase import conv1_pool
 from img2latex_tpu_torch.ops.conv_cf import convblock_cf
 
@@ -91,12 +95,61 @@ class CNNEncoder(nn.Module):
             y = F.max_pool2d(F.relu(y), 2)
         return y
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, H, W, 1) float NHWC -> (B, E) vector or (B, W', E) grid."""
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """x (B, H, W, 1) float NHWC -> (B, E) vector or (B, W', E) grid.
+        ``train`` is ignored: the CNN has no BatchNorm and no dropout."""
         y = self.features(x)
         if self.output == "grid":
             B, C, Hf, Wf = y.shape
             y = y.permute(0, 3, 2, 1).reshape(B, Wf, Hf * C)
         else:
             y = y.flatten(1)
+        return F.relu(F.linear(y, self.head.weight.to(self.dtype), self.head.bias.to(self.dtype)))
+
+
+class ResNetEncoder(nn.Module):
+    """:class:`~img2latex_tpu_torch.models.resnet.ResNetBackbone` plus a Dense
+    head and ReLU:
+
+    * ``output="vector"``: the mean of layer4's map over (H', W') -> (B, E)
+      (torch's ``AdaptiveAvgPool2d(1)`` before the head);
+    * ``output="grid"``: each of the W' columns' H'·F features, in (h, f)
+      order as the JAX package's NHWC transpose gives them -> (B, W', E).
+
+    The backbone is cuDNN's convolutions and plain tensor ops, as the JAX
+    package leaves it to XLA outside any Pallas kernel; so
+    ``hardware.pallas_chain`` has no effect on this encoder, as in the JAX
+    package (``models/seq2seq.py:63-70``).  ``train`` selects the
+    BatchNorm statistics: the batch's (and the running buffers updated), or
+    the running ones."""
+
+    def __init__(self, model_name: str = "resnet50", img_height: int = 64, img_width: int = 800,
+                 channels: int = 3, embedding_dim: int = 512, output: str = "vector",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if output not in ("vector", "grid"):
+            raise ValueError(f"output must be 'vector' or 'grid', got {output!r}")
+        self.dtype = dtype
+        self.output = output
+        self.backbone = ResNetBackbone(model_name, channels, dtype)
+        fdim = feature_dim(model_name)
+        hf, wf = feature_hw(img_height, img_width)
+        self.feature_shape: Tuple[int, int, int] = (fdim, hf, wf)  # (F, H', W') after layer4
+        self.head = nn.Linear(fdim * hf if output == "grid" else fdim, embedding_dim)
+
+    def features(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """x (B, H, W, C) float NHWC -> layer4's map (B, F, H', W') NCHW."""
+        return self.backbone(x, train)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """x (B, H, W, C) float NHWC -> (B, E) vector or (B, W', E) grid."""
+        return self.project(self.features(x, train))
+
+    def project(self, y: torch.Tensor) -> torch.Tensor:
+        """The head: layer4's map (B, F, H', W') -> (B, E) vector or (B, W', E) grid."""
+        if self.output == "grid":
+            B, Fd, Hf, Wf = y.shape
+            y = y.permute(0, 3, 2, 1).reshape(B, Wf, Hf * Fd)
+        else:
+            y = y.mean(dim=(2, 3))
         return F.relu(F.linear(y, self.head.weight.to(self.dtype), self.head.bias.to(self.dtype)))

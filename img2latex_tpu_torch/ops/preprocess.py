@@ -3,7 +3,8 @@
 uint8 NHWC batches go to the device and are normalized there:
 
 * grayscale (C=1): ``x/255 * 2 - 1`` -> [-1, 1];
-* RGB (C=3): ``(x/255 - mean) / std``.
+* RGB (C=3): ``(x/255 - mean) / std``;
+* :func:`grayscale_to_rgb` tiles a 1-channel batch to the ResNet's 3.
 
 The arithmetic runs in the compute type, in the same order as the JAX
 function, so both round alike.
@@ -32,3 +33,10 @@ def normalize_images(
     m = torch.tensor(mean, dtype=dtype, device=x.device)
     s = torch.tensor(std, dtype=dtype, device=x.device)
     return (x - m) / s
+
+
+def grayscale_to_rgb(images: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 1) -> (B, H, W, 3) by channel replication; RGB as it is."""
+    if images.shape[-1] == 3:
+        return images
+    return images.expand(*images.shape[:-1], 3)

@@ -55,14 +55,13 @@ import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
-import torch
 
 from img2latex_tpu_torch.config import set_by_path, validate_config
 from img2latex_tpu_torch.data.pipeline import create_data_loaders
 from img2latex_tpu_torch.decoding.decode import DecodeConfig, trim_host
 from img2latex_tpu_torch.ops.metrics import calculate_metrics, token_list_accuracy
 from img2latex_tpu_torch.training.predictor import Predictor, batch_seed
-from img2latex_tpu_torch.utils.device import free_device_memory_bytes
+from img2latex_tpu_torch.utils.device import device_cache_budget, upload_rows
 
 logger = logging.getLogger(__name__)
 
@@ -128,11 +127,7 @@ def evaluate_checkpoint(
         if max_batches is not None:
             n_rows = min(n_rows, max_batches * loader.batch_size)
         est = n_rows * h * w * c
-        if cfg.data.device_cache_budget_gb:
-            budget = int(cfg.data.device_cache_budget_gb * 1024**3)
-        else:
-            free = free_device_memory_bytes(device=pred.device)
-            budget = int(free * 0.5) if free else 2 * 1024**3
+        budget = device_cache_budget(cfg.data.device_cache_budget_gb, pred.device, share=0.5, fallback_gib=2.0)
         if est > budget:
             logger.warning("data.device_cache: %s split would use %.2f GiB (> %.2f GiB budget); "
                            "streaming from the host loader instead", split, est / 1024**3, budget / 1024**3)
@@ -146,14 +141,12 @@ def evaluate_checkpoint(
             cached.append(dict(batch))
         if cached:
             # one stacked upload; each batch a view of it on the device
-            big = torch.from_numpy(np.concatenate([b["images"] for b in cached], axis=0)).to(pred.device)
+            big = upload_rows([b["images"] for b in cached], pred.device)
             off = 0
             for b in cached:
                 n = b["images"].shape[0]
                 b["_images_dev"] = big[off : off + n]
                 off += n
-            if pred.device.type == "cuda":
-                torch.cuda.synchronize(pred.device)
         stats["cache_build_s"] = time.perf_counter() - t0
         batch_iter: Any = enumerate(cached)
     else:

@@ -9,6 +9,15 @@ micro-batch gradients is clipped and applied once, and the parameters do
 not change in between.  :class:`Optimizer` does the same around
 ``torch.optim.Adam`` (the JAX optimizer is XLA, not a Pallas kernel).
 
+With ``model.encoder.resnet.freeze_backbone`` (a ``resnet_lstm``), the
+ResNet backbone's parameters outside ``layer4_*`` are frozen, as the JAX
+package's ``optax.multi_transform`` with ``set_to_zero`` freezes them
+(:func:`trainable_label`): they get no update, no L2 and no Adam moments,
+and the global-norm clip is taken over the trainable parameters only.  Their
+gradients are still computed (the train step reports ``grad_norm`` over all
+parameters, as ``optax.global_norm(grads)`` does) and their BatchNorm running
+statistics still update in train mode.
+
 The learning rate lives in Adam's param groups: :func:`set_learning_rate`
 edits them, :func:`get_learning_rate` reads them.  :class:`PlateauScheduler`
 (torch ``ReduceLROnPlateau`` semantics) and :class:`EarlyStopping` are
@@ -29,16 +38,27 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
 
 
+def trainable_label(name: str) -> str:
+    """"freeze" for a ResNet backbone parameter outside layer4 (by its
+    ``named_parameters`` name), else "train"."""
+    parts = name.split(".")
+    if "backbone" in parts and not any(p.startswith("layer4_") for p in parts):
+        return "freeze"
+    return "train"
+
+
 class Optimizer:
     """clip -> L2 -> Adam, with MultiSteps accumulation over ``accumulation_steps``.
 
     :meth:`step` consumes the ``.grad`` of the parameters (the raw gradients
-    of one micro-batch) and clears them."""
+    of one micro-batch) and clears them; ``frozen`` parameters get no update,
+    and their gradients are cleared with the others'."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], learning_rate: float,
                  weight_decay: float = 0.0, clip_grad_norm: float = 5.0,
-                 accumulation_steps: int = 1):
+                 accumulation_steps: int = 1, frozen: Iterable[torch.nn.Parameter] = ()):
         self.params: List[torch.nn.Parameter] = [p for p in params if p.requires_grad]
+        self.frozen: List[torch.nn.Parameter] = list(frozen)
         self.adam = torch.optim.Adam(self.params, lr=learning_rate, betas=(0.9, 0.999),
                                      eps=1e-8, weight_decay=weight_decay)
         self.clip_grad_norm = float(clip_grad_norm)
@@ -78,7 +98,7 @@ class Optimizer:
         self.zero_grad()
 
     def zero_grad(self) -> None:
-        for p in self.params:
+        for p in self.params + self.frozen:
             p.grad = None
 
     def state_dict(self) -> Dict:
@@ -93,11 +113,18 @@ class Optimizer:
 
 
 def build_optimizer(cfg: Config, model: torch.nn.Module) -> Optimizer:
+    """The optimizer of ``model``'s parameters, with the freeze mask of a
+    ``resnet_lstm`` whose ``model.encoder.resnet.freeze_backbone`` is set."""
     tcfg = cfg.training
     if tcfg.optimizer.lower() != "adam":
         raise ValueError(f"Unsupported optimizer {tcfg.optimizer!r} (reference supports adam)")
-    return Optimizer(model.parameters(), tcfg.learning_rate, weight_decay=tcfg.weight_decay,
-                     clip_grad_norm=tcfg.clip_grad_norm, accumulation_steps=tcfg.accumulation_steps)
+    freeze_backbone = cfg.model.name == "resnet_lstm" and cfg.model.encoder.resnet.freeze_backbone
+    named = list(model.named_parameters())
+    frozen = [p for n, p in named if freeze_backbone and trainable_label(n) == "freeze"]
+    ids = {id(p) for p in frozen}
+    return Optimizer([p for _, p in named if id(p) not in ids], tcfg.learning_rate,
+                     weight_decay=tcfg.weight_decay, clip_grad_norm=tcfg.clip_grad_norm,
+                     accumulation_steps=tcfg.accumulation_steps, frozen=frozen)
 
 
 def set_learning_rate(opt: Optimizer, learning_rate: float) -> None:

@@ -10,6 +10,15 @@ metrics as tensors on the device (``loss``, ``correct``, ``total`` and
 its log cadence, not once per step.  The eval step is the teacher-forced
 pass without dropout and returns ``loss``, ``correct``, ``total``,
 ``pred_ids`` and ``probs_max``.
+
+A ``resnet_lstm`` model runs its train step's forward with ``train=True``:
+BatchNorm normalizes by the batch's statistics and updates its running
+buffers once a step, as the JAX step does with ``mutable=["batch_stats"]``;
+the eval step uses the running statistics.  A 1-channel batch is tiled to
+the 3 channels of a ResNet (a grayscale-stored device cache) before it is
+normalized.  With ``hardware.debug_nans`` applied
+(:func:`~img2latex_tpu_torch.utils.profiling.apply_numerics_flags`) the
+train step raises at a non-finite loss or gradient.
 """
 
 from __future__ import annotations
@@ -22,8 +31,9 @@ import torch
 from img2latex_tpu_torch.config import Config
 from img2latex_tpu_torch.models.seq2seq import Seq2SeqModel
 from img2latex_tpu_torch.ops.losses import masked_accuracy, masked_token_counts, smoothed_cross_entropy
-from img2latex_tpu_torch.ops.preprocess import normalize_images
+from img2latex_tpu_torch.ops.preprocess import grayscale_to_rgb, normalize_images
 from img2latex_tpu_torch.training.optim import Optimizer, global_norm
+from img2latex_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -48,9 +58,12 @@ def create_train_state(model: Seq2SeqModel, optimizer: Optimizer, cfg: Config,
 
 
 def _device_batch(cfg: Config, device: torch.device, batch: Dict[str, Any]):
-    """Host or device batch -> (float32 normalized images, int64 formulas) on ``device``."""
+    """Host or device batch -> (float32 normalized images, int64 formulas) on
+    ``device``; 1-channel images tiled to a 3-channel model's input."""
     pre = cfg.preprocessing
     images = torch.as_tensor(batch["images"]).to(device)
+    if images.shape[-1] == 1 and cfg.image_shape[2] == 3:
+        images = grayscale_to_rgb(images)
     images = normalize_images(images, pre.normalization_mean, pre.normalization_std, torch.float32)
     return images, torch.as_tensor(batch["formulas"]).to(device).long()
 
@@ -74,7 +87,9 @@ def make_train_step(cfg: Config, pad_id: int) -> Callable[[TrainState, Dict[str,
         loss.backward()
         with torch.no_grad():
             correct, total = masked_accuracy(logits, targets, pad_id)
-            grad_norm = global_norm(p.grad for p in state.optimizer.params if p.grad is not None)
+            grad_norm = global_norm(p.grad for p in state.model.parameters() if p.grad is not None)
+        if profiling.debug_nans_enabled():
+            profiling.check_finite(loss=loss, grad_norm=grad_norm)
         state.optimizer.step()
         state.step += 1
         return {"loss": loss.detach(), "correct": correct, "total": total, "grad_norm": grad_norm}

@@ -2,7 +2,8 @@
 ``img2latex_tpu/utils/checkpoint.py``, which writes Orbax directories).
 
 ``<ckpt_dir>/step_<N>/`` holds ``state.pt``, a ``torch.save`` of
-``{"model": state_dict, "optimizer": state_dict, "step": N}``, and
+``{"model": state_dict, "optimizer": state_dict, "step": N}`` (the model's
+``state_dict`` carries a ResNet's BatchNorm running buffers), and
 ``meta.json`` with the JAX trainer's keys (``epoch``, ``step``,
 ``best_val_loss``, ``config``, ``tokenizer_config``, ``metrics``,
 ``scheduler``, ``early_stopping``), so a predictor rebuilds config,
@@ -118,20 +119,23 @@ def convert_flax_checkpoint(params: Mapping[str, Any], meta: Dict[str, Any], ckp
     and every parameter; ``meta`` is kept as it is, with ``step`` set.  The
     step holds the model only: Optax's optimizer state is not converted, so
     the step serves :meth:`~img2latex_tpu_torch.training.predictor.Predictor.from_checkpoint`
-    and not a trainer's resume.  ``batch_stats`` (BatchNorm, the ResNet
-    encoder's) must be empty: that model is not ported."""
+    and not a trainer's resume.  ``batch_stats`` (a ``resnet_lstm``'s
+    BatchNorm running statistics, ``state["batch_stats"]``) go into the
+    running buffers; the bridge raises where a ResNet lacks them, and a
+    ``cnn_lstm`` given some raises ``NotImplementedError`` (no CNN of either
+    package has BatchNorm)."""
     from img2latex_tpu_torch.bridge import load_flax_params
     from img2latex_tpu_torch.config import config_from_dict
     from img2latex_tpu_torch.data.tokenizer import LaTeXTokenizer
     from img2latex_tpu_torch.models.seq2seq import build_model
 
-    if batch_stats:
-        raise NotImplementedError("batch_stats (BatchNorm of the ResNet encoder) are not ported")
     if "config" not in meta or "tokenizer_config" not in meta:
         raise ValueError("meta lacks the config/tokenizer_config sidecars")
     cfg = config_from_dict(meta["config"])
+    if batch_stats and cfg.model.name != "resnet_lstm":
+        raise NotImplementedError(f"batch_stats given for a {cfg.model.name}: only the ResNet encoder has BatchNorm")
     vocab = LaTeXTokenizer.from_config(meta["tokenizer_config"]).vocab_size
-    model = load_flax_params(build_model(cfg, vocab, device="cpu"), params)
+    model = load_flax_params(build_model(cfg, vocab, device="cpu"), params, batch_stats or None)
     out_meta = json.loads(json.dumps(meta))  # a copy, and a check that it is JSON
     out_meta["step"] = int(step)
     return save_checkpoint(ckpt_dir, {"model": model.state_dict(), "step": int(step)}, out_meta, int(step))

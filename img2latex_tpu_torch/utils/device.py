@@ -7,8 +7,9 @@ carries on on the CPU by itself.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 
@@ -36,6 +37,27 @@ def free_device_memory_bytes(fallback: Optional[int] = None,
         return fallback
     free, _ = torch.cuda.mem_get_info(dev)
     return int(free)
+
+
+def device_cache_budget(knob_gb: Optional[float], device: Union[str, torch.device], share: float,
+                        fallback_gib: float) -> int:
+    """Bytes a device-resident split may take: ``knob_gb`` GiB where set
+    (``data.device_cache_budget_gb``), else ``share`` of the card's free
+    memory, else (a CPU device) ``fallback_gib`` GiB."""
+    if knob_gb:
+        return int(knob_gb * 1024**3)
+    free = free_device_memory_bytes(device=device)
+    return int(free * share) if free else int(fallback_gib * 1024**3)
+
+
+def upload_rows(arrays: Sequence[np.ndarray], device: Union[str, torch.device]) -> torch.Tensor:
+    """Host arrays stacked along their first axis and uploaded in one copy;
+    on the card the call returns once the copy has ended."""
+    host = arrays[0] if len(arrays) == 1 else np.concatenate(arrays, axis=0)
+    big = torch.from_numpy(np.ascontiguousarray(host)).to(device)
+    if big.device.type == "cuda":
+        torch.cuda.synchronize(big.device)
+    return big
 
 
 def torch_dtype(name: str) -> torch.dtype:

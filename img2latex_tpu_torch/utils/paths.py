@@ -1,7 +1,8 @@
 """PathManager: the experiment directory tree (counterpart of ``img2latex_tpu/utils/paths.py``).
 
-``<project>/outputs/<experiment>/{checkpoints,logs,metrics,plots,reports,predictions}``,
-each created on access.
+``<project>/outputs/<experiment>/{checkpoints,logs,metrics,plots,reports,predictions}``
+and ``<project>/outputs/registry/experiment_registry.json``, each created on
+access.
 """
 
 from __future__ import annotations
@@ -32,6 +33,11 @@ class PathManager:
         self.project_root = Path(project_root).resolve() if project_root else find_project_root()
         self.outputs_dir = self.project_root / outputs_dirname
 
+    def registry_file(self) -> Path:
+        reg_dir = self.outputs_dir / "registry"
+        reg_dir.mkdir(parents=True, exist_ok=True)
+        return reg_dir / "experiment_registry.json"
+
     def experiment_dir(self, experiment_name: str) -> Path:
         return self.outputs_dir / experiment_name
 
@@ -42,3 +48,14 @@ class PathManager:
         d = self.experiment_dir(experiment_name) / kind
         d.mkdir(parents=True, exist_ok=True)
         return d
+
+
+_default: Optional[PathManager] = None
+
+
+def path_manager() -> PathManager:
+    """The process-wide PathManager of the working directory's project root."""
+    global _default
+    if _default is None:
+        _default = PathManager()
+    return _default
