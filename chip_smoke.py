@@ -52,7 +52,19 @@ seeded pretrained npz with the device cache stored grayscale, a registry and
 a profiler trace.  Each ResNet path's launches of the decode and training
 kernels are counted from 0 over its own run, into keys of their own in the
 kernels line (``launches_resnet_vector``, ``_grid``, ``_train_step``,
-``_trainer``).
+``_trainer``).  Then aspect-ratio buckets [200, 320, 512, 640] (phases
+27-31; arrays at the model height, natural widths drawn as
+scripts/bench_buckets.py draws them, no Pillow): conv1_pool (both routes
+and layouts) and convblock_cf against their plain versions at the bucket
+canvas widths 232, 352, 544 and 672 px; bucketed ``predict_batch`` of the
+vector path (also on the chain, and in float32, where the tokens must be
+equal), the grid path, grid beam-5 and selective beam, and ResNet-50
+against the fixed canvas's tokens, with each bucket's memory against the
+full canvas's and images/s both ways in turns; ``predict_split_bucketed``
+(3 passes) against the chunked output; and (phase 32, run right after
+phase 21 on its canvas cache) the whole-split ``evaluate_checkpoint``
+against the per-batch cached loop, in turns.  Their launches go under
+``launches_bucketed_*`` and ``launches_whole_split``.
 
 The bf16 ``lstm_layer_step``, ``vocab_argmax_step``, attention ``h @ W_h``,
 conv-pool, ``vocab_sample_step``, ``beam_step`` and conv1-pool kernels run on
@@ -2933,7 +2945,8 @@ EVAL_KEYS = ("end_to_end_seconds", "decode_seconds", "compile_and_first_batch_se
 BENCH_RUNS = (("bench_torch", ["512"], "greedy_decode_images_per_sec"),
               ("bench_beam_torch", ["128", "5"], "beam5_decode_images_per_sec"),
               ("bench_sampling_torch", ["512"], "topk_sampling_decode_images_per_sec"),
-              ("bench_train_torch", ["32"], "train_step_images_per_sec"))
+              ("bench_train_torch", ["32"], "train_step_images_per_sec"),
+              ("bench_buckets_torch", ["2048"], "bucketed_vs_fixed_speedup"))  # scripts/
 
 
 def write_canvas_corpus(root: str, tokenizer, n: int, cfg, seed: int = SEED + 21) -> str:
@@ -2999,16 +3012,18 @@ def _serial_predict(pred, images, batch_size: int, **kw):
 
 def _evaluate_both_loops(what: str, card: str, pred, root: str, cache_dir: str, out_dir: str,
                          expect: tuple, sync, **kw) -> tuple:
-    """evaluate_checkpoint streaming, then device-cached, through ``pred``:
-    the kernels in ``expect`` launched in each run (counts set to 0 just
-    before it, read just after), the two loops' predictions equal, the
-    cached run's ``cache_build_seconds`` above 0.  Returns the streaming
-    result and the rows of its predictions.json."""
+    """evaluate_checkpoint streaming, then device-cached by the per-batch
+    loop (``inference.whole_split`` off: phase 32 drives the whole split),
+    through ``pred``: the kernels in ``expect`` launched in each run (counts
+    set to 0 just before it, read just after), the two loops' predictions
+    equal, the cached run's ``cache_build_seconds`` above 0.  Returns the
+    streaming result and the rows of its predictions.json."""
     from img2latex_tpu_torch.training.evaluator import evaluate_checkpoint
 
     counters = _eval_counters()
     results, rows = {}, {}
-    for loop, extra in (("streaming", {}), ("device-cached", {"data.device_cache": True})):
+    for loop, extra in (("streaming", {}),
+                        ("device-cached", {"data.device_cache": True, "inference.whole_split": False})):
         sync()
         for fn in counters.values():
             fn.launches = 0
@@ -3108,7 +3123,8 @@ def phase_evaluate(dev, card: str, gcfg, gmodel, tokenizer, step_dir, tmp: str, 
     EVAL_N canvases at batch BATCH; grid beam-5 over EVAL_BEAM_N.  Each is
     held against predict_batch on the same canvases and the host's
     metrics.  Then the pipelined predict_batch beside the serial loop it
-    replaced, greedy and beam-5, in the same run (:func:`time_pipeline`)."""
+    replaced, greedy and beam-5, in the same run (:func:`time_pipeline`).
+    Returns the corpus's root and its canvas cache."""
     import torch
 
     from img2latex_tpu_torch.data.pipeline import create_data_loaders
@@ -3151,6 +3167,7 @@ def phase_evaluate(dev, card: str, gcfg, gmodel, tokenizer, step_dir, tmp: str, 
     res, rows = _evaluate_both_loops("vector, phase 16's checkpoint", card, vpred, root, cache_dir,
                                      os.path.join(tmp, "eval_vector"), grid_kernels[:1] + grid_kernels[2:], sync)
     _check_against_predict_batch("vector, phase 16's checkpoint", vpred, dataset, rows, res, EVAL_N)
+    return root, cache_dir
 
 
 def phase_bench_scripts(card: str) -> None:
@@ -3159,6 +3176,7 @@ def phase_bench_scripts(card: str) -> None:
     import importlib
     import io
 
+    sys.path.append(os.path.join(ROOT, "scripts"))  # bench_buckets_torch.py
     for name, argv, metric in BENCH_RUNS:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -3673,6 +3691,467 @@ def phase_resnet_trainer(dev, card: str, tokenizer, kernels: dict, tmp: str, epo
         f"MiB; phase wall {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# Aspect-ratio buckets and the whole split (phases 27-32).  Images at the model
+# height and their natural widths, drawn as scripts/bench_buckets.py draws its
+# population, go to the narrowest bucket that holds them plus the CNN's 32-px
+# margin (Predictor._assign_bucket); each bucket's canvases are encoded at its
+# width and filled back to full width with the white canvas's feature columns.
+# Arrays at the model height need no Pillow (data/transforms.py), which the
+# card's machine lacks.
+# ---------------------------------------------------------------------------
+BUCKETS = [200, 320, 512, 640]
+BUCKET_MARGIN = 4 * 2 ** len(FILTERS)                     # the CNN's margin: 4 feature columns
+BUCKET_CANVAS_W = tuple(b + BUCKET_MARGIN for b in BUCKETS)  # 232 (W2 = 116: partial tiles), 352, 544, 672
+BUCKET_MEDIAN, BUCKET_SIGMA = 0.42, 0.45                  # of the full width; scripts/bench_buckets.py
+BUCKET_LAUNCH_KEYS = tuple(f"launches_bucketed_{p}" for p in ("vector", "grid", "chain", "beam", "selective", "split",
+                                                                "resnet")) + ("launches_whole_split",)
+
+
+def bucket_images(n: int, seed: int):
+    """n gray (IMG_H, w, 1) uint8 arrays, random ink over their natural width
+    w, lognormal with median BUCKET_MEDIAN x IMG_W and sigma BUCKET_SIGMA,
+    clipped to [24, IMG_W - 1]."""
+    rng = np.random.default_rng(seed)
+    widths = np.clip(rng.lognormal(np.log(int(IMG_W * BUCKET_MEDIAN)), BUCKET_SIGMA, size=n), 24, IMG_W - 1)
+    return [rng.integers(0, 256, size=(IMG_H, int(w), 1), dtype=np.uint8) for w in widths]
+
+
+def at_width(images, width: int, channels: int = 1):
+    """The canvases of ``images`` at ``width`` (the full one: the fixed canvas),
+    by data/transforms.py's numpy route."""
+    from img2latex_tpu_torch.data.transforms import prepare_image_at_width
+
+    return [prepare_image_at_width(img, IMG_H, width, channels) for img in images]
+
+
+def ids_array(ids):
+    """Trimmed id lists -> (n, MAX_LEN) tokens as the decode gives them: the
+    ids, END, then PAD (0)."""
+    out = np.zeros((len(ids), MAX_LEN), np.int32)
+    for i, r in enumerate(ids):
+        out[i, : len(r)] = r
+        if len(r) < MAX_LEN:
+            out[i, len(r)] = END_ID
+    return out
+
+
+def _path_counters():
+    from img2latex_tpu_torch.ops.beam_decode import beam_step
+    from img2latex_tpu_torch.ops.conv1_phase import conv1_pool
+    from img2latex_tpu_torch.ops.conv_cf import convblock_cf
+    from img2latex_tpu_torch.ops.decode_step import lstm_layer_step, vocab_argmax_step
+    from img2latex_tpu_torch.ops.grid_decode import attend_step
+
+    return {"conv1_pool": conv1_pool, "convblock_cf": convblock_cf, "lstm_layer_step": lstm_layer_step,
+            "vocab_argmax_step": vocab_argmax_step, "attend_step": attend_step, "beam_step": beam_step}
+
+
+def count_launches(kernels: dict, key: str, what: str, fn, names):
+    """Run ``fn`` with the launch counts of ``names`` set to 0 just before and
+    read just after; each must have launched.  The counts go into the kernels
+    line under ``key``, this path's own.  Returns what ``fn`` returns."""
+    import torch
+
+    counters = _path_counters()
+    torch.cuda.synchronize()
+    for n in names:
+        counters[n].launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {n: counters[n].launches for n in names}
+    log(f"{what}: launches {json.dumps(got)}")
+    for n, c in got.items():
+        check(c > 0, f"kernel {n} was not launched on the {what} path")
+        kernels[n][key] = c
+    return out
+
+
+def phase_bucket_kernels(dev, card: str) -> None:
+    """conv1_pool (the tensor-core and the CUDA-core route, NCHW and NHWC out)
+    and convblock_cf (the chain's two blocks) against their plain versions at
+    the bucket canvas widths, B = BATCH, float32 and bf16, by the conv rules;
+    then their bf16 times at each width beside the full canvas's."""
+    import torch
+
+    from img2latex_tpu_torch.ops import conv1_phase as c1
+    from img2latex_tpu_torch.ops.conv1_phase import conv1_pool, conv1_pool_plain
+    from img2latex_tpu_torch.ops.conv_cf import convblock_cf, convblock_cf_plain
+    from img2latex_tpu_torch.ops.preprocess import normalize_images
+
+    rng = np.random.default_rng(SEED + 27)
+    w1 = torch.from_numpy(rng.standard_normal((FILTERS[0], 1, 3, 3), dtype=np.float32) / 3.0).to(dev)
+    b1 = torch.from_numpy(rng.standard_normal(FILTERS[0], dtype=np.float32) * 0.1).to(dev)
+    blocks = [(torch.from_numpy(rng.standard_normal((co, ci, 3, 3), dtype=np.float32) / np.sqrt(9 * ci)).to(dev),
+               torch.from_numpy(rng.standard_normal(co, dtype=np.float32) * 0.1).to(dev))
+              for ci, co in zip(FILTERS[:-1], FILTERS[1:])]
+    times = {}
+    with torch.no_grad():
+        for cw in BUCKET_CANVAS_W + (IMG_W,):
+            u8 = torch.from_numpy(rng.integers(0, 256, size=(BATCH, IMG_H, cw, 1), dtype=np.uint8)).to(dev)
+            for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                x = normalize_images(u8, dtype=dtype)
+                routes = [("tc", contextlib.nullcontext)] if name == "bfloat16" else []
+                routes.append(("cuda_core", core_route if name == "bfloat16" else contextlib.nullcontext))
+                if cw == IMG_W:  # the full canvas: times alone (phases 2 and 18 hold it)
+                    routes = []
+                for route, ctx in routes:
+                    with ctx():
+                        what = f"conv1_pool ({BATCH},{IMG_H},{cw},1), {route} route"
+                        check(c1.conv1_plan(BATCH, IMG_H, cw, FILTERS[0], dtype).route == route,
+                              f"{what}: conv1_plan names another route")
+                        for layout in ("nchw", "nhwc"):
+                            n0 = conv1_pool.tc_launches if route == "tc" else conv1_pool.core_launches
+                            got = conv1_pool(x, w1, b1, layout=layout)
+                            n1 = conv1_pool.tc_launches if route == "tc" else conv1_pool.core_launches
+                            check(n1 == n0 + 1, f"{what} {layout}: its kernel was not launched")
+                            _check_conv(f"{what}, {layout}", got, conv1_pool_plain(x, w1, b1, layout), name)
+                y = conv1_pool_plain(x, w1, b1).contiguous()  # as the encoder hands it on
+                for (w, b) in blocks:
+                    if cw != IMG_W:
+                        _check_conv(f"convblock_cf {tuple(y.shape)}", convblock_cf(y, w, b), convblock_cf_plain(y, w, b),
+                                    name)
+                    if name == "bfloat16":
+                        times.setdefault(cw, {}).setdefault("convblock_cf", 0.0)
+                        times[cw]["convblock_cf"] += time_ms(lambda: convblock_cf(y, w, b), iters=5, warmup=1)
+                    y = convblock_cf_plain(y, w, b).contiguous()
+                if name == "bfloat16":
+                    times[cw]["conv1_pool"] = graph_ms(lambda: conv1_pool(x, w1, b1))
+                del x, y
+            torch.cuda.empty_cache()
+    log("bf16 kernels a batch of " + str(BATCH) + " by canvas width (conv1_pool device time by CUDA graph; "
+        "convblock_cf both blocks, events): " + json.dumps({str(k): {n: round(t, 4) for n, t in v.items()}
+                                                           for k, v in times.items()}) + f" [{card}]")
+
+
+def _bucket_memories(pred, images, assign, channels: int = 1):
+    """For each bucket: its images' memory from the bucketed encode (at the
+    bucket's canvas width, padded with zero canvases to BATCH) against the
+    fixed canvas's, and the encoder's time at that width.  Returns (report,
+    every bucket's memory bit-equal)."""
+    import torch
+
+    from img2latex_tpu_torch.ops.preprocess import normalize_images
+
+    pre = pred.cfg.preprocessing
+    margin = pred.bucket_margin_px()
+
+    def norm(canv):
+        return normalize_images(torch.from_numpy(canv).to(pred.device), pre.normalization_mean,
+                                pre.normalization_std, pred.dtype)
+
+    report, all_equal = {}, True
+    with torch.no_grad():
+        xf = None
+        for bw in sorted({a for a in assign if a is not None}):
+            idxs = [i for i, a in enumerate(assign) if a == bw][:BATCH]
+            sel = [images[i] for i in idxs]
+            cb = np.zeros((BATCH, IMG_H, bw + margin, channels), np.uint8)
+            cf = np.zeros((BATCH, IMG_H, IMG_W, channels), np.uint8)
+            cb[: len(idxs)], cf[: len(idxs)] = at_width(sel, bw + margin, channels), at_width(sel, IMG_W, channels)
+            xb, xf = norm(cb), norm(cf)
+            mb, mf = pred.encode(xb, bw)[: len(idxs)], pred.model.encode(xf)[: len(idxs)]
+            equal = bool(torch.equal(mb, mf))
+            all_equal &= equal
+            report[bw] = dict(images=len(idxs), canvas=bw + margin, bit_equal=equal, max_rel_err=rel_err(mb, mf),
+                              encoder_ms=round(time_ms(lambda: pred.encode(xb, bw), iters=3, warmup=1), 3))
+            check(bool(torch.isfinite(mb.float()).all()), f"non-finite bucketed memory at {bw}")
+            check(report[bw]["max_rel_err"] <= CONV_BF16_RTOL, f"bucketed memory at {bw}: {report[bw]}")
+        if xf is not None:
+            report["full"] = dict(canvas=IMG_W, encoder_ms=round(time_ms(lambda: pred.model.encode(xf), iters=3,
+                                                                         warmup=1), 3))
+    return report, all_equal
+
+
+def _in_turns(fixed_fn, bucketed_fn, n: int):
+    """(images/s of each, in turns fixed, bucketed, bucketed, fixed; the ids of
+    each; the stats of the bucketed runs); the ids equal run to run."""
+    import torch
+
+    speed, ids, stats = {"fixed": [], "bucketed": []}, {}, []
+    for label in ("fixed", "bucketed", "bucketed", "fixed"):
+        st = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = (fixed_fn if label == "fixed" else bucketed_fn)(st)
+        torch.cuda.synchronize()
+        speed[label].append(round(n / (time.perf_counter() - t0), 1))
+        check(ids.setdefault(label, out) == out, f"bucketed phase: {label} ids differ run to run")
+        if label == "bucketed":
+            stats.append({k: (round(v, 4) if isinstance(v, float) else v) for k, v in st.items() if k != "first_calls"})
+    return speed, ids, stats
+
+
+def phase_bucketed_predict(dev, card: str, kind: str, cfg, model, tokenizer, kernels: dict):
+    """predict_batch by bucket (BUCKETS) of N_IMAGES bucket_images at batch
+    BATCH, bf16, against the fixed canvas's predict_batch of the same images:
+    images/s in turns, the launches of the bucketed run, each bucket's memory
+    against the fixed canvas's and its encoder ms, and the tokens by the
+    greedy rule (the rows that differ first differ at a near-tie of the
+    fixed canvas's plain path).  For vector also the same on the chain, and
+    in float32, where the tokens must be equal.  END's bias is tuned on a
+    copy of the model (:func:`_tune_end_bias`), so that about half the rows
+    end.  Returns the predictor and the images."""
+    import torch
+
+    from img2latex_tpu_torch.models.seq2seq import build_model
+    from img2latex_tpu_torch.training.predictor import Predictor
+
+    t_phase = time.perf_counter()
+    grid = kind == "grid"
+    images = bucket_images(N_IMAGES, SEED + 28)
+    full = at_width(images, IMG_W)
+    first = np.stack(full[:BATCH])
+    model = copy.deepcopy(model)  # END's bias is tuned on this copy: the caller's model stays as it was
+
+    def ended_share():  # of the first batch's rows on the fixed canvas, by the kernel decode
+        toks = Predictor(cfg, model, tokenizer, batch_size=BATCH).decode_canvases(first)
+        return float((toks == END_ID).any(axis=1).mean())
+
+    share = _tune_end_bias(model, ended_share)  # rows that end test the END -> PAD rule
+    pred = Predictor(cfg, model, tokenizer, batch_size=BATCH)
+    check(pred.bucket_margin_px() == BUCKET_MARGIN, f"CNN margin {pred.bucket_margin_px()}")
+    assign = [pred._assign_bucket(img, BUCKETS) for img in images]
+    shares = {str(b): assign.count(b) for b in BUCKETS + [None]}
+    check(all(shares[str(b)] > 0 for b in BUCKETS), f"a bucket is empty: {shares}")
+    pred.predict_batch(full[:BATCH], return_ids=True)  # warm-up: plans, packing
+    pred.predict_batch(images, return_ids=True, bucket_widths=BUCKETS)  # each width's plans, the white fill
+    names = ["conv1_pool", "lstm_layer_step", "vocab_argmax_step"] + (["attend_step"] if grid else [])
+
+    def bucketed(st):
+        return pred.predict_batch(images, return_ids=True, bucket_widths=BUCKETS, stats=st)
+
+    count_launches(kernels, f"launches_bucketed_{kind}", f"{kind} bucketed predict_batch",
+                   lambda: bucketed({}), names)
+    speed, ids, stats = _in_turns(lambda st: pred.predict_batch(full, return_ids=True, stats=st), bucketed, N_IMAGES)
+    mems, equal = _bucket_memories(pred, images, assign)
+    margins, plain = [], []
+    for i in range(0, N_IMAGES, BATCH):
+        ref, m, *_ = plain_reference(pred, np.stack(full[i : i + BATCH]))
+        plain.append(ref)
+        margins.append(m)
+    margins, plain = np.concatenate(margins), np.concatenate(plain)
+    got, fixed = ids_array(ids["bucketed"]), ids_array(ids["fixed"])
+    ok, st_fixed = compare_tokens(got, fixed, margins, "bfloat16", grid=grid)
+    ok_p, st_plain = compare_tokens(got, plain, margins, "bfloat16", grid=grid)
+    log(f"{kind} bucketed predict_batch, {N_IMAGES} images at batch {BATCH}, bf16, buckets {BUCKETS} (+{BUCKET_MARGIN} "
+        f"px), shares {json.dumps(shares)}: images/s fixed {speed['fixed']}, bucketed {speed['bucketed']} (in turns "
+        f"fixed, bucketed, bucketed, fixed); bucketed stats {json.dumps(stats)}; memory and encoder by bucket "
+        f"{json.dumps({str(k): v for k, v in mems.items()})}; END's bias tuned to {share:.3f} of the first batch's "
+        f"rows ending; tokens vs the fixed canvas {json.dumps(st_fixed)}; "
+        f"vs the fixed canvas's plain path {json.dumps(st_plain)}; phase wall {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+    check(ok and ok_p, f"{kind} bucketed tokens disagree with the fixed canvas's")
+    if equal:
+        check(ids["bucketed"] == ids["fixed"], f"{kind}: bit-equal memories, but the tokens differ")
+    if grid:
+        return pred, images
+
+    # the chain: blocks 1-2 through convblock_cf at every bucket width
+    ccfg, cmodel = chain_copy(cfg, model)
+    cpred = Predictor(ccfg, cmodel, tokenizer, batch_size=BATCH)
+    cpred.predict_batch(images, return_ids=True, bucket_widths=BUCKETS)  # warm-up
+    c_ids = count_launches(kernels, "launches_bucketed_chain", "vector bucketed predict_batch on the chain",
+                           lambda: cpred.predict_batch(images, return_ids=True, bucket_widths=BUCKETS),
+                           names + ["convblock_cf"])
+    c_full = cpred.predict_batch(full, return_ids=True)
+    c_mems, c_equal = _bucket_memories(cpred, images, assign)
+    ok, st_chain = compare_tokens(ids_array(c_ids), ids_array(c_full), margins, "bfloat16")
+    log(f"vector bucketed predict_batch on the chain: memory by bucket {json.dumps({str(k): v for k, v in c_mems.items()})}; "
+        f"tokens vs the chain's fixed canvas {json.dumps(st_chain)} [{card}]")
+    check(ok, "vector bucketed tokens on the chain disagree with the fixed canvas's")
+    if c_equal:
+        check(c_ids == c_full, "vector on the chain: bit-equal memories, but the tokens differ")
+
+    # float32: the CUDA-core kernels, cuDNN without TF32; tokens equal
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.hardware.compute_dtype = "float32"
+    model32 = build_model(cfg32, VOCAB)  # on the card: no device named
+    model32.load_state_dict(model.state_dict())
+    p32 = Predictor(cfg32, model32, tokenizer, batch_size=BATCH)
+    sub = images[:BATCH]
+    f_fixed = p32.predict_batch(full[:BATCH], return_ids=True)
+    f_buck = p32.predict_batch(sub, return_ids=True, bucket_widths=BUCKETS)
+    f_mems, _ = _bucket_memories(p32, sub, assign[:BATCH])
+    same = sum(a == b for a, b in zip(f_buck, f_fixed))
+    log(f"vector bucketed predict_batch in float32, {BATCH} images: tokens equal the fixed canvas's in {same}/{BATCH} "
+        f"rows; memory by bucket {json.dumps({str(k): v for k, v in f_mems.items()})} [{card}]")
+    check(f_buck == f_fixed, "float32 bucketed tokens differ from the fixed canvas's")
+    del model32, p32, cmodel, cpred
+    torch.cuda.empty_cache()
+    return pred, images
+
+
+def phase_bucketed_beam(dev, card: str, gcfg, gmodel, tokenizer, kernels: dict) -> None:
+    """Grid beam-5 (penalty 2.0) and selective beam (0.2) by bucket over one
+    batch of bucket_images, the grid head scaled by HEAD_GAIN (as phase 9):
+    beam-5 against the fixed canvas's (equal where every bucket's memory is
+    bit-equal, else BEAM_MIN_ROW_MATCH of the rows), and each selective row
+    the bucketed greedy or beam-5 row."""
+    import torch
+
+    from img2latex_tpu_torch.training.predictor import Predictor
+
+    images = bucket_images(BATCH, SEED + 29)
+    full = at_width(images, IMG_W)
+    kw = dict(beam_size=BEAM, length_penalty=LENGTH_PENALTY)
+    params = (gmodel.encoder.head.weight, gmodel.encoder.head.bias)
+    saved = [p.detach().clone() for p in params]
+    try:
+        with torch.no_grad():
+            for p in params:
+                p.mul_(HEAD_GAIN)
+        pred = Predictor(gcfg, gmodel, tokenizer, batch_size=BATCH)
+        assign = [pred._assign_bucket(img, BUCKETS) for img in images]
+        fixed = pred.predict_batch(full, return_ids=True, **kw)
+        pred.predict_batch(images, return_ids=True, bucket_widths=BUCKETS, **kw)  # warm-up
+
+        beam_names = ["conv1_pool", "attend_step", "lstm_layer_step", "beam_step"]
+        out, wall = {}, {}
+        for path, key, extra, names in (
+                ("beam", "launches_bucketed_beam", {}, beam_names),
+                ("selective", "launches_bucketed_selective", {"selective_beam_frac": SELECTIVE_FRAC},
+                 beam_names + ["vocab_argmax_step"])):
+            t0 = time.perf_counter()
+            out[path] = count_launches(
+                kernels, key, f"grid bucketed {path} beam",
+                lambda: pred.predict_batch(images, return_ids=True, bucket_widths=BUCKETS, **kw, **extra), names)
+            wall[path] = round(time.perf_counter() - t0, 3)
+        greedy = pred.predict_batch(images, return_ids=True, bucket_widths=BUCKETS)
+        _, equal = _bucket_memories(pred, images, assign)
+    finally:
+        with torch.no_grad():
+            for p, v in zip(params, saved):
+                p.copy_(v)
+    match = float(np.mean([a == b for a, b in zip(out["beam"], fixed)]))
+    sel_ok = [s == g or s == b for s, g, b in zip(out["selective"], greedy, out["beam"])]
+    log(f"grid bucketed beam-{BEAM} and selective beam {SELECTIVE_FRAC}, {BATCH} images: seconds {json.dumps(wall)}; "
+        f"beam rows equal to the fixed canvas's {match:.4f} (memories bit-equal: {equal}; floor "
+        f"{BEAM_MIN_ROW_MATCH['bfloat16']}); {len({tuple(r) for r in out['beam']})} distinct beam rows; selective rows "
+        f"that are their greedy or beam row {sum(sel_ok)}/{BATCH} [{card}]")
+    check(match == 1.0 if equal else match >= BEAM_MIN_ROW_MATCH["bfloat16"], "bucketed beam-5 vs the fixed canvas")
+    check(all(sel_ok), "a bucketed selective row is neither its greedy nor its beam row")
+
+
+def phase_split_bucketed(card: str, pred, images, kernels: dict) -> None:
+    """predict_split_bucketed(passes=3) of the vector path's images: equal to
+    the chunked bucketed predict_batch, with the JAX accounting."""
+    chunked = pred.predict_batch(images, return_ids=True, bucket_widths=BUCKETS)
+    st = {}
+    t0 = time.perf_counter()
+    split = count_launches(kernels, "launches_bucketed_split", "vector predict_split_bucketed (3 passes)",
+                           lambda: pred.predict_split_bucketed(images, pred.decode_config(), BATCH, BUCKETS,
+                                                               passes=3, stats=st),
+                           ["conv1_pool", "lstm_layer_step", "vocab_argmax_step"])
+    wall = time.perf_counter() - t0
+    steady = st["steady_images"] / max(st["dispatch_s"] + st["fetch_s"] + st["post_s"], 1e-9)
+    log(f"vector predict_split_bucketed, {len(images)} images, 3 passes: {wall:.3f} s; steady passes "
+        f"{steady:.1f} images/s (dispatch + post + fetch); stats "
+        f"{json.dumps({k: (round(v, 4) if isinstance(v, float) else v) for k, v in st.items()})} [{card}]")
+    check(split == chunked, "predict_split_bucketed differs from the chunked bucketed predict_batch")
+    check(len(st["first_calls"]) == len(BUCKETS) + 1 and st["steady_images"] == 2 * len(images),
+          f"predict_split_bucketed accounting {st}")
+
+
+def phase_resnet_bucketed(dev, card: str, tokenizer, kernels: dict) -> None:
+    """A ResNet-50 vector greedy predict_batch by bucket over BATCH
+    bucket_images (margin 224 px: 320 and 512 taken, 640 rejected), against
+    the fixed canvas's by the ResNet rule."""
+    import torch
+
+    from img2latex_tpu_torch.training.predictor import Predictor
+
+    t_phase = time.perf_counter()
+    images = bucket_images(BATCH, SEED + 31)
+    full = at_width(images, IMG_W)
+    cfg, model, canv, x, share = resnet_greedy_setup(dev, "vector", SEED + 31, full)
+    pred = Predictor(cfg, model, tokenizer, batch_size=BATCH)
+    check(pred.bucket_margin_px() == 224, f"ResNet-50 margin {pred.bucket_margin_px()}")
+    assign = [pred._assign_bucket(img, BUCKETS) for img in images]
+    shares = {str(b): assign.count(b) for b in BUCKETS + [None]}
+    check(shares["640"] == 0 and shares["512"] > 0, f"ResNet-50 bucket shares {shares}")
+    pred.predict_batch(full, return_ids=True)  # warm-up
+    pred.predict_batch(images, return_ids=True, bucket_widths=BUCKETS)
+    count_launches(kernels, "launches_bucketed_resnet", f"{RESNET} vector bucketed predict_batch",
+                   lambda: pred.predict_batch(images, return_ids=True, bucket_widths=BUCKETS),
+                   ["lstm_layer_step", "vocab_argmax_step"])
+    speed, ids, stats = _in_turns(
+        lambda st: pred.predict_batch(full, return_ids=True, stats=st),
+        lambda st: pred.predict_batch(images, return_ids=True, bucket_widths=BUCKETS, stats=st), BATCH)
+    mems, equal = _bucket_memories(pred, images, assign, channels=3)
+    with torch.no_grad():
+        _, plain, _ = resnet_decoders(model, model.encode(x), grid=False)
+        _, margins = plain()
+    ok, st = compare_resnet_tokens(ids_array(ids["bucketed"]), ids_array(ids["fixed"]), margins.cpu().numpy())
+    log(f"{RESNET} vector bucketed predict_batch, {BATCH} images, shares {json.dumps(shares)}: images/s fixed "
+        f"{speed['fixed']}, bucketed {speed['bucketed']}; stats {json.dumps(stats)}; memory and encoder by bucket "
+        f"{json.dumps({str(k): v for k, v in mems.items()})}; END's bias tuned to {share:.3f} ending; tokens vs the "
+        f"fixed canvas {json.dumps(st)}; phase wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+    check(ok, f"{RESNET} bucketed tokens disagree with the fixed canvas's")
+    if equal:
+        check(ids["bucketed"] == ids["fixed"], f"{RESNET}: bit-equal memories, but the tokens differ")
+    del model, pred
+    torch.cuda.empty_cache()
+
+
+def phase_whole_split(dev, card: str, gcfg, gmodel, tokenizer, root: str, cache_dir: str, tmp: str,
+                      kernels: dict) -> None:
+    """evaluate_checkpoint with data.device_cache over phase 21's canvas cache
+    (the grid model, its head scaled by HEAD_GAIN) in turns: the per-batch
+    cached loop (inference.whole_split off), the whole split (3 passes)
+    twice, and the loop again; the predictions and metrics equal, the
+    resident rates."""
+    import torch
+
+    from img2latex_tpu_torch.training.evaluator import evaluate_checkpoint
+    from img2latex_tpu_torch.training.predictor import Predictor
+
+    params = (gmodel.encoder.head.weight, gmodel.encoder.head.bias)
+    saved = [p.detach().clone() for p in params]
+    res, rows = {}, {}
+    try:
+        with torch.no_grad():
+            for p in params:
+                p.mul_(HEAD_GAIN)
+        pred = Predictor(gcfg, gmodel, tokenizer, batch_size=BATCH)
+        for label, whole, passes in (("per-batch", False, 1), ("whole split", True, 3), ("whole split again", True, 3),
+                                     ("per-batch again", False, 1)):
+            out = os.path.join(tmp, "whole_split", label.replace(" ", "_"))
+            over = {"data.canvas_cache_dir": cache_dir, "data.device_cache": True, "inference.whole_split": whole}
+
+            def run():
+                return evaluate_checkpoint(None, data_dir=root, batch_size=BATCH, predictor=pred, output_dir=out,
+                                           config_overrides=over, passes=passes)
+
+            if label == "whole split":
+                r = count_launches(kernels, "launches_whole_split", "whole-split evaluate_checkpoint (3 passes)", run,
+                                   ["conv1_pool", "attend_step", "lstm_layer_step", "vocab_argmax_step"])
+            else:
+                r = run()
+            with open(os.path.join(out, "predictions.json")) as f:
+                rows[label] = json.load(f)["predictions"]
+            res[label] = r
+            log(f"evaluate_checkpoint, grid greedy, {label}: {r['num_images']} images, resident "
+                f"{r['images_per_second_resident']:.1f} images/s, decode-only {r['images_per_second_decode_only']:.1f}, "
+                f"whole_split {r.get('whole_split')}, decode_passes {r.get('decode_passes')}; accounting "
+                f"{json.dumps({k: r[k] for k in EVAL_KEYS})} [{card}]")
+    finally:
+        with torch.no_grad():
+            for p, v in zip(params, saved):
+                p.copy_(v)
+    w = res["whole split"]
+    for label in ("whole split", "whole split again"):
+        r = res[label]
+        check(r.get("whole_split") is True and r.get("decode_passes") == 3 and r["steady_images"] == 2 * EVAL_N,
+              f"{label}: {json.dumps({k: r.get(k) for k in ('whole_split', 'decode_passes', 'steady_images')})}")
+    check("whole_split" not in res["per-batch"], "the per-batch cached loop reported a whole split")
+    for label in ("per-batch", "whole split again", "per-batch again"):
+        check(rows[label] == rows["whole split"], f"whole split: predictions differ from the {label} loop's")
+        for k in ("num_images", "bleu", "levenshtein", "token_accuracy"):
+            check(res[label][k] == w[k], f"whole split: {k} differs from the {label} loop's")
+    check(len({r["prediction"] for r in rows["whole split"]}) > 1, "whole split: every prediction alike")
+
+
 def _build_dir():
     from img2latex_tpu_torch.ops import _build
 
@@ -4004,7 +4483,10 @@ def main() -> int:
         phase_chain_training(dev, rng, card, kernels, tcfg, step_dir, tbatch)
 
         # ---- phase 21: evaluate_checkpoint from a Pillow-free canvas cache --------------
-        phase_evaluate(dev, card, gcfg, gmodel, tokenizer, step_dir, ckpt_tmp)
+        eval_root, eval_cache = phase_evaluate(dev, card, gcfg, gmodel, tokenizer, step_dir, ckpt_tmp)
+
+        # ---- phase 32, run here on phase 21's canvas cache: the whole split -------------
+        phase_whole_split(dev, card, gcfg, gmodel, tokenizer, eval_root, eval_cache, ckpt_tmp, kernels)
 
     # ---- phase 22: the bench scripts, each once at a reduced batch -------------------
     phase_bench_scripts(card)
@@ -4018,6 +4500,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=str(_build_dir())) as resnet_tmp:
         phase_resnet_trainer(dev, card, tokenizer, kernels, resnet_tmp)
     log(f"ResNet phases 23-26 wall time {time.perf_counter() - t_resnet:.1f} s")
+
+    # ---- phases 27-31: aspect-ratio buckets ------------------------------------------
+    t_bucket = time.perf_counter()
+    torch.cuda.empty_cache()
+    phase_bucket_kernels(dev, card)  # 27: the conv kernels at the bucket canvas widths
+    vpred, vimages = phase_bucketed_predict(dev, card, "vector", cfg, model, tokenizer, kernels)  # 28
+    phase_bucketed_predict(dev, card, "grid", gcfg, gmodel, tokenizer, kernels)
+    phase_bucketed_beam(dev, card, gcfg, gmodel, tokenizer, kernels)  # 29
+    phase_split_bucketed(card, vpred, vimages, kernels)  # 30
+    del vpred
+    phase_resnet_bucketed(dev, card, tokenizer, kernels)  # 31
+    log(f"bucket phases 27-31 wall time {time.perf_counter() - t_bucket:.1f} s")
 
     # ---- report --------------------------------------------------------------
     log(f"chip_smoke.py wall time {time.perf_counter() - t_start:.1f} s (build included)")
@@ -4040,11 +4534,14 @@ def main() -> int:
     # the ResNet paths of phases 23-26, each counted from 0 over its own run
     # (vector and grid greedy predict_batch, the ResNet-50 train step, the
     # frozen ResNet-18 Trainer.train()), else null; launches does not hold them.
+    # launches_bucketed_vector, _grid, _chain, _beam, _selective, _split, _resnet and
+    # launches_whole_split: the same for the bucketed paths of phases 28-31
+    # and the whole-split evaluate of phase 32.
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "max_abs_err_bf16", "ms",
             "ms_eager", "plain_ms", "bound_ms", "bound_by", "library_ms", "ms_method", "plain_ms_method", "parts",
-            "plan_route", "ms_cuda_core") + RESNET_LAUNCH_KEYS
+            "plan_route", "ms_cuda_core") + RESNET_LAUNCH_KEYS + BUCKET_LAUNCH_KEYS
     for n in order:
-        for k in RESNET_LAUNCH_KEYS:
+        for k in RESNET_LAUNCH_KEYS + BUCKET_LAUNCH_KEYS:
             kernels[n].setdefault(k, None)
         kernels[n].setdefault("max_abs_err_bf16", None)
         kernels[n].setdefault("plan_route", None)

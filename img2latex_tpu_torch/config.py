@@ -135,6 +135,15 @@ class InferenceConfig:
     selective_beam_frac: float = 0.0
     selective_signal: str = "margin"  # logp | margin | entropy | margin_logp[:alpha]
     early_exit: bool = False
+    # Aspect-ratio buckets (widths at the model height): an image whose content
+    # plus the white margin fits a bucket runs the encoder on a canvas of that
+    # width plus the margin, and its feature map is filled back to full width
+    # with the white canvas's columns; the tokens are the full canvas's.
+    bucket_widths: Optional[List[int]] = None
+    # evaluate with data.device_cache: decode the split on the card as one
+    # whole (every batch enqueued back to back, one fetch); False forces the
+    # per-batch cached loop
+    whole_split: bool = True
 
 
 @dataclass

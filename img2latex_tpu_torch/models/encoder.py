@@ -21,6 +21,12 @@ the feature map to the memory:
   the counterpart of ``_chain_path``), which adds the bias in float32 and
   rounds once.  The JAX gate's "backend is a TPU" has no counterpart: on the
   card the kernels run, on the CPU their plain versions.
+* :meth:`CNNEncoder.features` and :meth:`CNNEncoder.project` split the
+  encoder at the feature map, as the JAX ``features_only`` /
+  ``from_features`` do (the aspect-ratio bucketing seam).  The port's map
+  is NCHW, the JAX package's NHWC.  Unlike the JAX package, whose
+  ``features_only`` leaves the chain, the port's features run the chain
+  where it is on, so that a bucket's canvas takes the kernels of a full one.
 * The vector head flattens NCHW in (c, h, w) order.  The JAX package
   flattens NHWC in (h, w, c) order; :mod:`img2latex_tpu_torch.bridge`
   permutes the head's rows when it loads flax weights.  The grid head takes
@@ -80,8 +86,9 @@ class CNNEncoder(nn.Module):
         self.feature_shape: Tuple[int, int, int] = (cin, h, w)  # (C, H', W') after the stack
         self.head = nn.Linear(cin * h if output == "grid" else cin * h * w, embedding_dim)
 
-    def features(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, H, W, 1) float NHWC -> conv feature map (B, C, H', W') NCHW."""
+    def features(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """x (B, H, W, 1) float NHWC -> conv feature map (B, C, H', W') NCHW.
+        ``train`` is ignored, as in :meth:`forward`."""
         x = x.to(self.dtype)
         c0 = self.convs[0]
         y = conv1_pool(x, c0.weight, c0.bias, layout="nchw")
@@ -98,7 +105,10 @@ class CNNEncoder(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """x (B, H, W, 1) float NHWC -> (B, E) vector or (B, W', E) grid.
         ``train`` is ignored: the CNN has no BatchNorm and no dropout."""
-        y = self.features(x)
+        return self.project(self.features(x))
+
+    def project(self, y: torch.Tensor) -> torch.Tensor:
+        """The head: the conv feature map (B, C, H', W') -> (B, E) vector or (B, W', E) grid."""
         if self.output == "grid":
             B, C, Hf, Wf = y.shape
             y = y.permute(0, 3, 2, 1).reshape(B, Wf, Hf * C)

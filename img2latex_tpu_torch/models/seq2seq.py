@@ -5,7 +5,8 @@ Counterpart of ``img2latex_tpu/models/seq2seq.py``: ``model.name``
 (inputs ``targets[:, :-1]``, logits over the shifted sequence; ``train=True``
 turns dropout on, and the ResNet's BatchNorm onto the batch's statistics,
 updating its running buffers); ``encode`` and ``decode_step`` serve the
-decode loops.  :func:`build_model` returns the model in eval mode:
+decode loops, and ``encode_features`` / ``encode_from_features`` split the
+encode at the feature map for aspect-ratio bucketing.  :func:`build_model` returns the model in eval mode:
 training passes ``train=True`` explicitly.
 """
 
@@ -36,6 +37,18 @@ class Seq2SeqModel(nn.Module):
         """images (B, H, W, C) float NHWC -> memory (B, 1, E) vector or (B, W', E)
         grid; ``train`` reaches the ResNet's BatchNorm (the CNN has none)."""
         out = self.encoder(images, train=train)
+        return out[:, None, :] if out.dim() == 2 else out
+
+    def encode_features(self, images: torch.Tensor) -> torch.Tensor:
+        """images (B, H, W, C) float NHWC -> the map before the head, (B, C, H',
+        W') NCHW: the CNN's conv stack or the ResNet backbone through layer4
+        in eval mode (the JAX ``encode_features``, which gives it NHWC)."""
+        return self.encoder.features(images, train=False)
+
+    def encode_from_features(self, features: torch.Tensor) -> torch.Tensor:
+        """The head on a map of :meth:`encode_features` -> memory (B, 1, E)
+        vector or (B, W', E) grid (the JAX ``encode_from_features``)."""
+        out = self.encoder.project(features)
         return out[:, None, :] if out.dim() == 2 else out
 
     def forward(self, images: torch.Tensor, target_sequences: torch.Tensor, train: bool = False,

@@ -9,24 +9,33 @@ Levenshtein similarity and token accuracy over the whole split
 ``predictions.json`` (``{"metrics", "predictions": [{"image", "prediction",
 "reference"}]}``).  The result has the JAX package's keys.
 
-Two loops, as in the JAX package:
+The loops, as in the JAX package:
 
 * streaming: the loader's background thread preps batch i + 1 while the
   card decodes batch i, and the loop dispatches batch i
   (:meth:`Predictor.decode_canvases` with ``fetch=False``), fetches batch
   i - 1, and only then waits for batch i's tokens;
 * ``data.device_cache``: the split is uploaded once as uint8 (one stacked
-  copy) and each batch is a view of it on the card.  The split must fit
-  ``data.device_cache_budget_gb``, else half the card's free memory (2 GiB
-  where none is reported); a split over it is logged and streams, as the
-  JAX package does.  ``cache_build_seconds`` is above 0 exactly when the
-  cached loop ran.
+  copy).  The split must fit ``data.device_cache_budget_gb``, else half
+  the card's free memory (2 GiB where none is reported); a split over it is
+  logged and streams, as the JAX package does.  ``cache_build_seconds`` is
+  above 0 exactly when the split was cached.  With ``inference.whole_split``
+  (the default) and every batch full, the split is decoded as a whole
+  (:func:`_evaluate_whole_split`: every batch enqueued back to back by
+  :meth:`Predictor.dispatch_split`, one fetch), ``passes`` times; the
+  result has ``whole_split`` and ``decode_passes``.  Otherwise each batch
+  is a view of it on the card, decoded as in the streaming loop;
+* ``bucket_widths`` (default ``inference.bucket_widths``): the images are
+  read from their files (their natural widths decide the buckets, which
+  the fixed canvases of the loader and the canvas cache have lost) and
+  decoded by aspect-ratio bucket (:func:`_evaluate_bucketed`): streaming
+  through ``Predictor.predict_batch``'s bucketed plan, or with
+  ``data.device_cache`` and ``inference.whole_split`` each bucket as a
+  whole split (``Predictor.predict_split_bucketed``).
 
-The JAX package's whole-split program (``inference.whole_split``, ``passes``)
-and the bucketed evaluation (``bucket_widths``) are not ported
-(``ROADMAP.md`` queue 4): they raise.  A sampling decode draws batch i with
-the kernel seed ``batch_seed(0, i)`` (the JAX package splits
-``PRNGKey(0)``).
+A sampling decode draws batch i with the kernel seed ``batch_seed(0, i)``
+(the JAX package splits ``PRNGKey(0)``); the bucketed loops number the
+batches bucket by bucket (``Predictor.predict_split_bucketed``).
 
 Throughput accounting, with the JAX package's inclusion rule: each decode
 configuration's first call (in the port, the kernel library's first-launch
@@ -57,15 +66,13 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from img2latex_tpu_torch.config import set_by_path, validate_config
-from img2latex_tpu_torch.data.pipeline import create_data_loaders
+from img2latex_tpu_torch.data.pipeline import _image_path, create_data_loaders
 from img2latex_tpu_torch.decoding.decode import DecodeConfig, trim_host
 from img2latex_tpu_torch.ops.metrics import calculate_metrics, token_list_accuracy
-from img2latex_tpu_torch.training.predictor import Predictor, batch_seed
+from img2latex_tpu_torch.training.predictor import Predictor, batch_seed, run_passes
 from img2latex_tpu_torch.utils.device import device_cache_budget, upload_rows
 
 logger = logging.getLogger(__name__)
-
-NOT_PORTED = "is not ported yet (ROADMAP.md queue 4: bucketing and resident evaluation)"
 
 
 def evaluate_checkpoint(
@@ -94,11 +101,8 @@ def evaluate_checkpoint(
     ``config_overrides`` then apply to this evaluation's copy of it;
     without one, the checkpoint is loaded with them onto ``device`` (the card
     unless ``"cpu"`` is named).  ``batch_size`` sets the evaluation batch;
-    ``max_batches`` caps the batches decoded."""
-    if bucket_widths:
-        raise NotImplementedError(f"bucket_widths: the bucketed evaluation {NOT_PORTED}")
-    if passes != 1:
-        raise NotImplementedError(f"passes={passes}: the whole-split program {NOT_PORTED}")
+    ``max_batches`` caps the batches decoded; ``passes`` is the decodes of
+    a split held on the card as a whole (module docstring)."""
     pred = predictor or Predictor.from_checkpoint(checkpoint_path, config_overrides=config_overrides,
                                                   device=device)
     cfg = copy.deepcopy(pred.cfg)  # per-evaluation overrides never reach the caller's predictor
@@ -117,6 +121,10 @@ def evaluate_checkpoint(
     dcfg = pred.decode_config(beam_size=beam_size, max_length=max_length, temperature=temperature,
                               top_k=top_k, top_p=top_p, length_penalty=length_penalty,
                               early_exit=early_exit, inference=cfg.inference)
+    if bucket_widths is None:
+        bucket_widths = cfg.inference.bucket_widths
+    if bucket_widths:
+        return _evaluate_bucketed(pred, cfg, loader, dcfg, split, bucket_widths, max_batches, output_dir, passes)
 
     stats: Dict[str, Any] = {}
     wall0 = time.perf_counter()
@@ -139,9 +147,14 @@ def evaluate_checkpoint(
             if max_batches is not None and bi >= max_batches:
                 break
             cached.append(dict(batch))
+        big = upload_rows([b["images"] for b in cached], pred.device) if cached else None
+        if (big is not None and cfg.inference.whole_split
+                and all(b["images"].shape[0] == loader.batch_size for b in cached)):
+            stats["cache_build_s"] = time.perf_counter() - t0
+            return _evaluate_whole_split(pred, cfg, tok, split, loader, cached, big, dcfg, stats, wall0,
+                                         output_dir, passes)
         if cached:
-            # one stacked upload; each batch a view of it on the device
-            big = upload_rows([b["images"] for b in cached], pred.device)
+            # each batch a view of the one stacked upload on the device
             off = 0
             for b in cached:
                 n = b["images"].shape[0]
@@ -197,9 +210,7 @@ def evaluate_checkpoint(
         B = batch["images"].shape[0]
         if run is None:
             t_setup = time.perf_counter()
-            pred.packed_decoder()  # the decode kernels' weights, packed once
-            if cfg.model.memory == "grid" and cfg.model.decoder.attention:
-                pred.packed_attention()
+            _pack(pred, cfg)
 
             def run(images, seed):
                 return pred.decode_canvases(images, dcfg=dcfg, seed=seed, fetch=False)
@@ -233,10 +244,100 @@ def evaluate_checkpoint(
                    time.perf_counter() - wall0, dcfg, output_dir)
 
 
+def _pack(pred: Predictor, cfg) -> None:
+    """The decode kernels' weights, packed once per Predictor."""
+    pred.packed_decoder()
+    if cfg.model.memory == "grid" and cfg.model.decoder.attention:
+        pred.packed_attention()
+
+
+def _evaluate_whole_split(pred: Predictor, cfg, tok, split: str, loader, cached, big, dcfg: DecodeConfig,
+                          stats: Dict[str, Any], wall0: float, output_dir: Optional[str],
+                          passes: int) -> Dict[str, Any]:
+    """The cached split decoded as a whole (the JAX ``_evaluate_whole_split``):
+    ``Predictor.dispatch_split`` enqueues every batch back to back, batch i
+    with ``batch_seed(0, i)`` as the per-batch loop draws it, and the split
+    is fetched once.  The targets are trimmed and detokenized once, in the
+    set-up.  Pass 1 is the first call; with ``passes >= 2`` each later pass
+    is dispatched, then the pass before is trimmed and detokenized on the
+    host while the card decodes, then the pass is fetched (:func:`run_passes`),
+    so that those passes are the steady figures (``images_per_second_resident``)."""
+    B = loader.batch_size
+    n_b = len(cached)
+    t_setup = time.perf_counter()
+    _pack(pred, cfg)
+    seeds = [batch_seed(0, i) for i in range(n_b)]
+    images_all = big.view((n_b, B) + tuple(big.shape[1:]))
+    n_valid = [int(b.get("n_valid", B)) for b in cached]
+    tgt_ids = [trim_host(np.asarray(b["formulas"])[:n, 1:], tok.end_token_id, tok.pad_token_id)  # START stripped
+               for b, n in zip(cached, n_valid)]
+    tgt_strs = [tok.decode_rows(t) for t in tgt_ids]
+    stats["setup_s"] = time.perf_counter() - t_setup
+    n_images = sum(n_valid)
+    ds = loader.dataset
+
+    def post(tokens: np.ndarray):
+        """A pass's trim, detokenize and rows, as a repeated evaluation pays them."""
+        all_preds, all_tgts, rows = [], [], []
+        offset = 0
+        for bi, n in enumerate(n_valid):
+            pred_ids = trim_host(tokens[bi, :n], tok.end_token_id, tok.pad_token_id, start_id=tok.start_token_id)
+            all_preds.extend(pred_ids)
+            all_tgts.extend(tgt_ids[bi])
+            for j, (p, r) in enumerate(zip(tok.decode_rows(pred_ids), tgt_strs[bi])):
+                idx = offset + j
+                name = ds.samples[idx][0] if idx < len(ds.samples) and not loader.shuffle else None
+                rows.append({"image": name, "prediction": p, "reference": r})
+            offset += n
+        return all_preds, all_tgts, rows
+
+    t0 = time.perf_counter()
+    tokens = pred.dispatch_split(images_all, dcfg, seeds).cpu().numpy()
+    stats["first_calls"] = [{"exec": f"whole_split_decode[{n_b}x{B}]", "seconds": time.perf_counter() - t0,
+                             "images": n_images}]
+    all_preds, all_tgts, rows = run_passes(lambda: pred.dispatch_split(images_all, dcfg, seeds),
+                                           lambda fut: fut.cpu().numpy(), post, tokens, passes, stats, n_images)
+    return _finish(cfg, tok, split, all_preds, all_tgts, rows, n_images, stats, time.perf_counter() - wall0,
+                   dcfg, output_dir, extra_fields={"whole_split": True, "decode_passes": max(passes, 1)})
+
+
+def _evaluate_bucketed(pred: Predictor, cfg, loader, dcfg: DecodeConfig, split: str, bucket_widths,
+                       max_batches: Optional[int], output_dir: Optional[str], passes: int) -> Dict[str, Any]:
+    """Evaluate by aspect-ratio bucket from the image files (the JAX
+    ``_evaluate_bucketed``): with ``data.device_cache`` and
+    ``inference.whole_split`` each bucket as a whole split
+    (``Predictor.predict_split_bucketed``, ``passes`` times), else streaming
+    through the bucketed ``predict_batch`` plan.  The wall starts at the
+    decode, as in the JAX package."""
+    tok = pred.tokenizer
+    ds = loader.dataset
+    n = len(ds.samples)
+    if max_batches is not None:
+        n = min(n, max_batches * loader.batch_size)
+    paths = [_image_path(ds.img_dir, name) for name, _ in ds.samples[:n]]
+    stats: Dict[str, Any] = {}
+    use_split = bool(cfg.data.device_cache) and cfg.inference.whole_split
+    t0 = time.perf_counter()
+    if use_split:
+        pred_ids = pred.predict_split_bucketed(paths, dcfg, loader.batch_size, bucket_widths, passes=passes,
+                                               stats=stats)
+    else:
+        pred_ids = pred._predict_bucketed(paths, dcfg, loader.batch_size, 0, True, bucket_widths, stats)
+    wall = time.perf_counter() - t0
+    tgt_ids = (trim_host(np.stack([ds.token_ids(i) for i in range(n)])[:, 1:], tok.end_token_id, tok.pad_token_id)
+               if n else [])
+    rows = [{"image": ds.samples[i][0], "prediction": tok.decode(pred_ids[i]), "reference": tok.decode(tgt_ids[i])}
+            for i in range(n)]
+    return _finish(cfg, tok, split, pred_ids, tgt_ids, rows, n, stats, wall, dcfg, output_dir, bucketed=True,
+                   extra_fields={"whole_split": True, "decode_passes": max(passes, 1)} if use_split else None)
+
+
 def _finish(cfg, tok, split: str, all_preds, all_tgts, rows, n_images: int, stats: Dict[str, Any],
-            wall_s: float, dcfg: DecodeConfig, output_dir: Optional[str]) -> Dict[str, Any]:
+            wall_s: float, dcfg: DecodeConfig, output_dir: Optional[str], bucketed: bool = False,
+            extra_fields: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """The metrics over the split, the accounting, and ``predictions.json``
-    (the JAX package's ``_finish``, ``evaluator.py:461-570``, and its keys)."""
+    (the JAX package's ``_finish``, ``evaluator.py:461-570``, and its keys;
+    ``extra_fields`` join them)."""
     quality = calculate_metrics(all_preds, all_tgts, cfg.evaluation.bleu_n)
     correct, total = token_list_accuracy(all_preds, all_tgts, tok.pad_token_id)
     first_calls = stats.get("first_calls", [])
@@ -285,7 +386,7 @@ def _finish(cfg, tok, split: str, all_preds, all_tgts, rows, n_images: int, stat
             "decode_seconds (device dispatch + blocking wait only); "
             "images_per_second_resident additionally excludes the one-time "
             "cache_build_seconds + setup_seconds (the repeated-eval regime)"),
-        "bucketed": False,
+        "bucketed": bucketed,
         "decode": {
             "beam_size": dcfg.beam_size,
             "temperature": dcfg.temperature,
@@ -296,6 +397,7 @@ def _finish(cfg, tok, split: str, all_preds, all_tgts, rows, n_images: int, stat
             "max_length": dcfg.max_length,
         },
     }
+    result.update(extra_fields or {})
     logger.info("evaluate[%s]: %d images bleu %.4f lev %.4f acc %.4f (%.0f img/s end-to-end, "
                 "%.0f img/s decode-only%s)", split, n_images, result["bleu"], result["levenshtein"],
                 result["token_accuracy"], result["images_per_second"],

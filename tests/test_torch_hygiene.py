@@ -1,9 +1,10 @@
 """Import hygiene of the port: it runs where JAX, yaml, Pillow and matplotlib are absent.
 
 In a fresh interpreter, import every module of img2latex_tpu_torch and build
-a CPU Predictor; then none of jax, flax, yaml, PIL, matplotlib, triton or any
-img2latex_tpu module may be loaded.  An ``ast`` scan of the package and of
-chip_smoke.py finds no such import either.
+a CPU Predictor, decoding a fixed and a bucketed batch of arrays; then none
+of jax, flax, yaml, PIL, matplotlib, triton or any img2latex_tpu module may
+be loaded.  An ``ast`` scan of the package, of
+chip_smoke.py and of ``scripts/*_torch.py`` finds no such import either.
 """
 
 import ast
@@ -39,6 +40,7 @@ tok = LaTeXTokenizer()
 tok.default_init()
 pred = Predictor(cfg, build_model(cfg, tok.vocab_size, device="cpu"), tok, batch_size=2, device="cpu")
 out = pred.predict_batch([np.zeros((8, 16, 1), np.uint8)] * 3, return_ids=True)
+out += pred.predict_batch([np.zeros((8, w, 1), np.uint8) for w in (4, 30)], return_ids=True, bucket_widths=[4])
 print(json.dumps({"modules": sorted(sys.modules), "imported": names, "n_out": len(out)}))
 """
 
@@ -53,14 +55,14 @@ def test_import_and_cpu_predictor_load_nothing_forbidden():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert report["n_out"] == 3
+    assert report["n_out"] == 5
     assert len(report["imported"]) >= 15
     loaded = [m for m in report["modules"] if _forbidden(m)]
     assert loaded == []
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*_torch.py"))
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))

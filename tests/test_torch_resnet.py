@@ -14,8 +14,9 @@ and the same inputs go through both:
   up to ~6e-4 from a float64 run of the same flax code (the batch
   statistics' float32 sums, amplified through 16 train-mode blocks; the
   port's float32 lies ~1e-4 from it), so that case is held in float64
-  (both packages, 1e-9) and the port's float32 must lie no farther from the
-  float64 result than the JAX package's float32 does;
+  (both packages, 1e-9), and the port's float32 must lie no farther from
+  the float64 result than the JAX package's float32 does (or 1e-4), that
+  distance itself within 1e-3 (``F32_TRAIN_CAP``);
 * (b) the train step: ``tests/test_torch_resnet_train.py``;
 * (c) ``predict_batch`` greedy tokens of a ResNet-18, vector and grid,
   equal to the JAX ``Predictor``'s in float32;
@@ -61,6 +62,15 @@ torch.set_num_threads(1)
 H_IMG, W_IMG, B, E, L = 64, 128, 4, 16, 12
 ENC_RTOL = 1e-4  # of the largest magnitude, float32
 F64_RTOL = 1e-9
+# ResNet-50 in train mode, float32 against float64, of the largest magnitude:
+# the batch statistics' float32 sums, amplified through 16 train-mode blocks,
+# put the JAX package's own float32 result 1.9e-4 to 3.6e-4 from the float64
+# one at these shapes (up to ~6e-4 in other runs) and the port's 4.8e-5 to 1.1e-4.
+# The port's bound is the JAX package's distance (or ENC_RTOL), and that
+# distance must lie within F32_TRAIN_CAP, so that the bound has power: a wrong
+# statistic (an unbiased variance over the 32 values a channel of layer4,
+# another eps) moves the result by ~1e-2.
+F32_TRAIN_CAP = 1e-3
 HEAD_GAIN = 4.0
 
 
@@ -238,8 +248,14 @@ def check_encoder(encoders, memory, train):
         mod, leaf = path.rsplit("/", 1)
         got = getattr(e64.get_submodule(mod.replace("/", ".")), "running_" + leaf)
         assert rel(got.numpy(), ref) <= F64_RTOL, path
-    for got32, ref32, ref64 in ((feats, feats_ref, f_ref), (mem, mem_ref, m_ref)):
-        assert rel(got32, ref64) <= max(rel(ref32, ref64), ENC_RTOL), (rel(got32, ref64), rel(ref32, ref64))
+    # each float32 against the float64 result, at one shape: the JAX vector
+    # memory is (B, 1, E) from encode_from_features and (B, E) from the
+    # encoder's own from_features; compared as they come, the two broadcast
+    # to (B, B, E) and both distances read ~1.0
+    for got32, ref32, ref64 in ((feats, feats_ref, f_ref), (mem, mem_ref, m_ref.reshape(mem_ref.shape))):
+        jax_err = rel(ref32, ref64)
+        assert jax_err <= F32_TRAIN_CAP, jax_err
+        assert rel(got32, ref64) <= max(jax_err, ENC_RTOL), (rel(got32, ref64), jax_err)
 
 
 # ---------------------------------------------------------------------------

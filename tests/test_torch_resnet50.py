@@ -6,7 +6,7 @@ eval and train mode; layer4's map, the memory and the running buffers within
 1e-4 of the largest magnitude in float32, except in train mode, where the
 JAX package's own float32 result is ~6e-4 from its float64 one: there both
 packages are held in float64 (1e-9), and the port's float32 no farther from
-it than the JAX package's float32.
+that result than the JAX package's float32, whose distance must be under 1e-3.
 """
 
 import pytest
